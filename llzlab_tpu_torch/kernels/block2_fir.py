@@ -1,0 +1,210 @@
+"""Kernel B2: the block2 FIR, by hand for Hopper (``csrc/block2_fir.cu``).
+
+Replaces the Pallas TPU kernel ``llzlab_tpu/kernels/block2_fir.py``
+(``_kernel_high`` / ``_kernel_highest``, entry ``block2_fir_pallas``).
+Contract (the same): ``xpad (B, block + T)`` f32 with one block of history
+prepended → ``y (B, T)``, ``y[n] = Σ_k h[k]·xpad[block + n − k]``,
+``block ≥ ntaps − 1``.
+
+* :func:`block2_fir` is the entry: a CUDA tensor launches the kernel
+  (:func:`block2_fir_cuda`, which counts its launches in ``.launches``),
+  a CPU tensor runs the plain version.  Nothing falls back.
+* :func:`block2_fir_plain` is the plain PyTorch version, the two-matmul
+  Toeplitz form of ``llzlab_tpu/ops/fir.py:_block2_filter``:
+  ``y_j = x_{j−1} @ B + x_j @ A`` with ``W = [[B], [A]]``.
+
+Precision modes (as in the JAX package):
+
+* ``"highest"``: f32 products and sums.
+* ``"high"``: explicit bf16x3: operands split into bf16 hi/lo, products
+  ``S_hi·W_hi + S_lo·W_hi + S_hi·W_lo`` with f32 accumulation.
+
+The bf16 tables are rounded from f64 through f32 with round-to-nearest-
+even, as the JAX package rounds them, so they are bit-equal.  The kernel
+reads the tap vector; the plain version reads the W matrix.  Every entry
+of W is a tap or 0, so both carry the same numbers.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from llzlab_tpu_torch.kernels import _build
+
+__all__ = ["supports", "band_k", "bf16_hi_lo", "tap_tables", "plain_tables",
+           "block2_fir", "block2_fir_cuda", "block2_fir_plain"]
+
+MODES = ("high", "highest")
+
+
+def supports(channels: int, ntaps: int, block: int) -> bool:
+    """Shape envelope of the kernel (the JAX package's, unchanged)."""
+    return (
+        channels >= 8
+        and channels % 8 == 0
+        and block % 128 == 0
+        and ntaps - 1 <= block
+        and block <= 2048
+    )
+
+
+def _w_matrix(taps: np.ndarray, block: int) -> np.ndarray:
+    """(2·block, block) f64 combined Toeplitz halves W = [[B], [A]]."""
+    ntaps = len(taps)
+    w = np.zeros((2 * block, block), np.float64)
+    i = np.arange(block)
+    for m in range(block):
+        k = i - m  # current block taps (A, bottom half)
+        sel = (k >= 0) & (k < ntaps)
+        w[block + m, i[sel]] = taps[k[sel]]
+        k2 = block + i - m  # previous block taps (B, top half)
+        sel2 = (k2 >= 0) & (k2 < ntaps)
+        w[m, i[sel2]] = taps[k2[sel2]]
+    return w
+
+
+def band_k(ntaps: int, block: int) -> int:
+    """Rows of W that one 128-column output tile touches, aligned to 128
+    (the JAX kernel's contraction band; 1152 at 1024 taps / 1024 block)."""
+    return block + 128 - 128 * ((block - ntaps + 1) // 128)
+
+
+def bf16_hi_lo(w64: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+    """bf16 hi/lo parts of f64 values: ``hi = bf16(f32(w))``,
+    ``lo = bf16(f32(w − hi))`` (CPU tensors)."""
+    w = torch.from_numpy(np.ascontiguousarray(w64, np.float64))
+    hi = w.to(torch.float32).to(torch.bfloat16)
+    lo = (w - hi.to(torch.float64)).to(torch.float32).to(torch.bfloat16)
+    return hi, lo
+
+
+def _mode_tables(w64: np.ndarray, mode: str, device, dtype=torch.float32):
+    """Tables of the f64 values ``w64`` for ``mode``: ``(w,)`` for
+    "highest", the bf16 ``(hi, lo)`` parts for "high"; each cast to
+    ``dtype`` (bf16 parts are exact in f32 and f64)."""
+    if mode == "highest":
+        return (torch.from_numpy(w64).to(dtype).to(device),)
+    if mode != "high":
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    return tuple(p.to(dtype).to(device) for p in bf16_hi_lo(w64))
+
+
+@functools.lru_cache(maxsize=16)
+def _tap_tables_cached(taps_bytes: bytes, mode: str, device: str):
+    taps = np.frombuffer(taps_bytes, np.float64).copy()
+    dtype = torch.float32 if mode == "highest" else torch.bfloat16
+    return _mode_tables(taps, mode, device, dtype)
+
+
+def tap_tables(taps, mode: str, device="cpu"):
+    """What the kernel reads: ``(taps f32,)`` or ``(taps_hi, taps_lo)`` bf16."""
+    taps = np.asarray(taps, np.float64)
+    return _tap_tables_cached(taps.tobytes(), mode, str(device))
+
+
+@functools.lru_cache(maxsize=16)
+def _plain_tables_cached(taps_bytes: bytes, block: int, mode: str,
+                         device: str, dtype: torch.dtype):
+    taps = np.frombuffer(taps_bytes, np.float64)
+    return _mode_tables(_w_matrix(taps, block), mode, device, dtype)
+
+
+def plain_tables(taps, block: int, mode: str, device="cpu",
+                 dtype=torch.float32):
+    """What the plain version reads: ``(W,)`` or ``(W_hi, W_lo)``, each
+    ``(2·block, block)`` in ``dtype``."""
+    taps = np.asarray(taps, np.float64)
+    return _plain_tables_cached(taps.tobytes(), block, mode, str(device),
+                                dtype)
+
+
+def _bf16_split(s: torch.Tensor):
+    """hi/lo bf16 parts of ``s``, returned in s's dtype (exact values)."""
+    hi = s.to(torch.float32).to(torch.bfloat16).to(s.dtype)
+    lo = (s - hi).to(torch.float32).to(torch.bfloat16).to(s.dtype)
+    return hi, lo
+
+
+def block2_fir_plain(xpad: torch.Tensor, taps, block: int,
+                     mode: str = "high") -> torch.Tensor:
+    """Plain PyTorch version of kernel B2 in xpad's dtype (f32, or f64 for a
+    reference): ``(B, block + T)`` → ``(B, T)``."""
+    b, tp = xpad.shape
+    t = tp - block
+    nblk = -(-t // block)
+    xp = F.pad(xpad, (0, (nblk + 1) * block - tp))
+    cur = xp[:, block:].reshape(b, nblk, block)
+    prev = xp[:, : nblk * block].reshape(b, nblk, block)
+    tabs = plain_tables(taps, block, mode, xpad.device, xpad.dtype)
+    if mode == "highest":
+        (w,) = tabs
+        y = prev @ w[:block] + cur @ w[block:]
+    else:
+        w_hi, w_lo = tabs
+        p_hi, p_lo = _bf16_split(prev)
+        c_hi, c_lo = _bf16_split(cur)
+        y = (p_hi @ w_hi[:block] + p_lo @ w_hi[:block] + p_hi @ w_lo[:block]
+             + c_hi @ w_hi[block:] + c_lo @ w_hi[block:]
+             + c_hi @ w_lo[block:])
+    return y.reshape(b, nblk * block)[:, :t]
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.block2_fir_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.block2_fir_launch.restype = i
+
+
+def block2_fir_cuda(xpad: torch.Tensor, taps, block: int,
+                    mode: str = "high") -> torch.Tensor:
+    """Launch kernel B2 on ``torch.cuda.current_stream()``."""
+    taps = np.asarray(taps, np.float64)
+    ntaps = len(taps)
+    if not xpad.is_cuda:
+        raise ValueError("block2_fir_cuda needs a CUDA tensor")
+    if xpad.dtype != torch.float32 or xpad.dim() != 2:
+        raise ValueError(f"xpad must be 2-D float32, got {xpad.dtype} "
+                         f"{tuple(xpad.shape)}")
+    if not xpad.is_contiguous():
+        raise ValueError("xpad must be contiguous")
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    b, tp = xpad.shape
+    t = tp - block
+    if not supports(b, ntaps, block) or t <= 0:
+        raise ValueError(
+            f"block2 kernel envelope: channels % 8 == 0, block % 128 == 0, "
+            f"ntaps − 1 ≤ block ≤ 2048, T > 0 (got channels={b}, "
+            f"ntaps={ntaps}, block={block}, T={t})")
+    lib = _build.load("block2_fir", _declare)
+    with torch.cuda.device(xpad.device):
+        tabs = tap_tables(taps, mode, xpad.device)
+        y = torch.empty((b, t), dtype=torch.float32, device=xpad.device)
+        rc = lib.block2_fir_launch(
+            xpad.data_ptr(), tabs[0].data_ptr(),
+            tabs[1].data_ptr() if mode == "high" else None, y.data_ptr(),
+            b, t, block, ntaps, int(mode == "high"),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "block2_fir")
+    block2_fir_cuda.launches += 1
+    return y
+
+
+block2_fir_cuda.launches = 0
+
+
+def block2_fir(xpad: torch.Tensor, taps, block: int, *,
+               mode: str = "high") -> torch.Tensor:
+    """Block2 FIR on ``(B, block + T)`` pre-padded input → ``(B, T)``:
+    kernel B2 for a CUDA tensor, the plain version for a CPU tensor."""
+    if xpad.is_cuda:
+        return block2_fir_cuda(xpad, taps, block, mode)
+    if xpad.device.type != "cpu":
+        raise ValueError(f"unsupported device {xpad.device}")
+    return block2_fir_plain(xpad, taps, block, mode)

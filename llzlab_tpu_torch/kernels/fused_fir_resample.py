@@ -1,0 +1,288 @@
+"""Kernel B1: the fused FIR → polyphase resample step, by hand for Hopper
+(``csrc/fused_fir_resample.cu``).
+
+Replaces the Pallas TPU kernel ``llzlab_tpu/kernels/fused_fir_resample.py``
+(``_kernel``, the v3 dataflow; entry ``fused_fir_resample_pallas``).  It is
+numerically equal (sums reassociated) to
+
+    resample_poly(fir_filter(x, fir_taps, method="block2"), up, down, rtaps)
+
+with one streaming state: the last ``2·block`` input samples, enough to
+recompute both the FIR history and the resampler's ``K−1``-sample lookback.
+
+* :func:`fused_fir_resample` is the entry (port of
+  ``fused_fir_resample_pallas``): a CUDA tensor launches the kernel
+  (:func:`fused_fir_resample_cuda`, which counts its launches in
+  ``.launches``), a CPU tensor runs :func:`fused_fir_resample_plain`.
+* The plain version is block2 FIR of ``[hist | x]`` then the dense slab
+  product ``slab (B, S, down+K−1) @ Rᵀ``, with the bf16 hi/lo split
+  emulated for ``"high"``.
+
+Shape envelope, program length and state length are the JAX package's
+(``fused_supports``, ``fused_program_in``, ``fused_state_len``), so a port
+chain streams on the same block grid with same-shaped state.  The TPU's
+VMEM knobs (``gb``, ``rs_batch``, ``p_mult``, ``cb``) and its experiments
+(``impl="v4"``, ``wide``, ``nw``) have no counterpart.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import numpy as np
+import torch
+
+from llzlab_tpu_torch.kernels import _build
+from llzlab_tpu_torch.kernels.block2_fir import (MODES, _bf16_split,
+                                                 _mode_tables,
+                                                 block2_fir_plain,
+                                                 tap_tables)
+from llzlab_tpu_torch.ops.fir import block2_block
+from llzlab_tpu_torch.ops.resample import (_phase_layout, polyphase_weights,
+                                           resample_output_len)
+
+__all__ = [
+    "fused_fir_resample",
+    "fused_fir_resample_cuda",
+    "fused_fir_resample_plain",
+    "fused_supports",
+    "fused_static_ok",
+    "fused_program_in",
+    "fused_state_len",
+    "bank_tables",
+    "kernel_tables",
+    "kernel_fits",
+]
+
+#: FIR outputs per stage-1 pass of a CUDA block (512 threads × 4)
+_STEP = 2048
+#: dynamic shared memory one block may use on sm_90 (227 KB)
+_SMEM_MAX = 232448
+
+
+def fused_program_in(ntaps: int, up: int, down: int) -> int:
+    """Input samples per program of the JAX kernel, kept as the stream
+    granularity: the smallest P with ``P % (2·block) == 0``,
+    ``P % down == 0`` and ``(P/down)·up % 128 == 0``."""
+    block = block2_block(ntaps)
+    g0 = 128 // math.gcd(up, 128)
+    return (g0 * down * 2 * block) // math.gcd(g0 * down, 2 * block)
+
+
+def fused_state_len(ntaps: int) -> int:
+    """Streaming history length (input samples): ``2·block``."""
+    return 2 * block2_block(ntaps)
+
+
+def fused_static_ok(ntaps: int, up: int, down: int, k: int) -> bool:
+    """Channel/length-independent part of the shape envelope."""
+    block = block2_block(ntaps)
+    if not (ntaps - 1 <= block <= 2048):
+        return False
+    if k - 1 > block or k - 1 > down + block:  # halo must fit one y-block
+        return False
+    p = fused_program_in(ntaps, up, down)
+    return p <= 65536
+
+
+def fused_supports(channels: int, ntaps: int, up: int, down: int,
+                   k: int, t: int) -> bool:
+    """Shape envelope of the fused op (the JAX package's, unchanged)."""
+    if not (channels >= 8 and channels % 8 == 0):
+        return False
+    if not fused_static_ok(ntaps, up, down, k):
+        return False
+    p = fused_program_in(ntaps, up, down)
+    return t % p == 0 and t > 0
+
+
+def _run_groups(down: int, k: int) -> int:
+    """Output groups per CUDA block: as many as fill two stage-1 passes
+    (``groups·down + K − 1 ≤ 2·_STEP``, 25 at the headline), or the fewest
+    whole passes that hold one group."""
+    passes = 2
+    while (passes * _STEP - (k - 1)) // down < 1:
+        passes += 1
+    return (passes * _STEP - (k - 1)) // down
+
+
+def _smem_bytes(ntaps: int, down: int, k: int, mode: str) -> int:
+    """Shared memory of one CUDA block (mirrors ``geometry`` in the .cu):
+    the FIR taps, the x window and the y window, twice in "high"."""
+    ntp = -(-ntaps // 32) * 32
+    ly = _run_groups(down, k) * down + k - 1
+    lx = -(-ly // _STEP) * _STEP + ntp
+    return 4 * (ntp + lx + ly) * (2 if mode == "high" else 1)
+
+
+def kernel_fits(ntaps: int, down: int, k: int) -> bool:
+    """Whether one CUDA block's working set fits the 227 KB of shared
+    memory (82 KB in "high" at the headline; a ``down`` of many thousand
+    samples makes the y window too long)."""
+    return _smem_bytes(ntaps, down, k, "high") <= _SMEM_MAX
+
+
+@functools.lru_cache(maxsize=16)
+def _bank_cached(r_bytes: bytes, up: int, down: int, mode: str, device: str,
+                 dtype: torch.dtype, dense: bool):
+    w = polyphase_weights(np.frombuffer(r_bytes, np.float64), up, down)
+    if dense:  # the plain version's (down+K−1, up) product operand
+        return _mode_tables(np.ascontiguousarray(w.T), mode, device, dtype)
+    # the kernel's (K, up) bank: bank[j, p] = W[p, q_p + K−1−j], the K
+    # nonzero entries of row p
+    k = w.shape[1] - down + 1
+    _, q = _phase_layout(up, down)
+    cols = q[None, :] + (k - 1) - np.arange(k)[:, None]
+    return _mode_tables(np.ascontiguousarray(w[np.arange(up)[None, :], cols]),
+                        mode, device, dtype)
+
+
+def bank_tables(rtaps, up: int, down: int, mode: str = "high", device="cpu",
+                dtype=torch.float32, dense: bool = False):
+    """Resample bank: ``(f32,)`` for "highest" or ``(hi, lo)`` for "high",
+    in ``dtype``.  ``dense``: the ``(down+K−1, up)`` transposed polyphase
+    matrix (plain version); else the ``(K, up)`` nonzero bank (kernel)."""
+    return _bank_cached(np.asarray(rtaps, np.float64).tobytes(), up, down,
+                        mode, str(device), dtype, dense)
+
+
+def kernel_tables(fir_taps, rtaps, up: int, down: int, mode: str,
+                  device="cpu"):
+    """What kernel B1 reads: FIR taps then the ``(K, up)`` bank, each
+    ``(f32,)`` for "highest" or bf16 ``(hi, lo)`` for "high"."""
+    dtype = torch.float32 if mode == "highest" else torch.bfloat16
+    return (tap_tables(fir_taps, mode, device)
+            + bank_tables(rtaps, up, down, mode, device, dtype))
+
+
+def fused_fir_resample_plain(x: torch.Tensor, hist: torch.Tensor, fir_taps,
+                             up: int, down: int, rtaps,
+                             mode: str = "high") -> torch.Tensor:
+    """Plain PyTorch version of kernel B1 in x's dtype (f32, or f64 for a
+    reference).  ``x (B, T)`` with ``T % down == 0``, ``hist (B, 2·block)``
+    → ``(B, T·up/down)``."""
+    fir = np.asarray(fir_taps, np.float64)
+    block = block2_block(len(fir))
+    k = len(rtaps) // up
+    b, t = x.shape
+    # y for stream indices [−block, T): block2 over [hist | x], whose first
+    # block is its history
+    y = block2_fir_plain(torch.cat([hist.to(x.dtype), x], dim=-1), fir,
+                         block, mode)
+    # slab[s, τ] = y[s·down − (K−1) + τ]
+    y = y[:, block - (k - 1):]
+    tabs = bank_tables(rtaps, up, down, mode, x.device, x.dtype, dense=True)
+    if mode == "highest":
+        z = y.unfold(-1, down + k - 1, down) @ tabs[0]
+    else:
+        r_hi, r_lo = tabs
+        y_hi, y_lo = (v.unfold(-1, down + k - 1, down)
+                      for v in _bf16_split(y))
+        z = y_hi @ r_hi + y_lo @ r_hi + y_hi @ r_lo
+    return z.reshape(b, (t // down) * up)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fused_fir_resample_launch.argtypes = [p] * 7 + [i] * 9 + [p]
+    lib.fused_fir_resample_launch.restype = i
+
+
+def fused_fir_resample_cuda(x: torch.Tensor, hist: torch.Tensor, fir_taps,
+                            up: int, down: int, rtaps,
+                            mode: str = "high") -> torch.Tensor:
+    """Launch kernel B1 on ``torch.cuda.current_stream()``."""
+    fir = np.asarray(fir_taps, np.float64)
+    ntaps = len(fir)
+    k = len(rtaps) // up
+    if not (x.is_cuda and hist.is_cuda and x.device == hist.device):
+        raise ValueError("fused_fir_resample_cuda needs x and hist on one "
+                         "CUDA device")
+    if x.dtype != torch.float32 or hist.dtype != torch.float32:
+        raise ValueError("x and hist must be float32")
+    if x.dim() != 2 or not x.is_contiguous() or not hist.is_contiguous():
+        raise ValueError("x and hist must be contiguous 2-D tensors")
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    b, t = x.shape
+    hl = fused_state_len(ntaps)
+    if tuple(hist.shape) != (b, hl):
+        raise ValueError(f"hist must be {(b, hl)}, got {tuple(hist.shape)}")
+    if not fused_supports(b, ntaps, up, down, k, t):
+        raise ValueError(
+            f"fused kernel envelope: channels % 8 == 0, ntaps − 1 ≤ block ≤ "
+            f"2048, K − 1 ≤ block, T a multiple of "
+            f"{fused_program_in(ntaps, up, down)} (got channels={b}, "
+            f"ntaps={ntaps}, K={k}, T={t})")
+    if not kernel_fits(ntaps, down, k):
+        raise ValueError(
+            f"fused kernel: {_smem_bytes(ntaps, down, k, 'high')} B of "
+            f"shared memory per block exceeds {_SMEM_MAX} (down={down})")
+    lib = _build.load("fused_fir_resample", _declare)
+    with torch.cuda.device(x.device):
+        tabs = kernel_tables(fir, rtaps, up, down, mode, x.device)
+        z = torch.empty((b, (t // down) * up), dtype=torch.float32,
+                        device=x.device)
+        high = mode == "high"
+        rc = lib.fused_fir_resample_launch(
+            x.data_ptr(), hist.data_ptr(), tabs[0].data_ptr(),
+            tabs[1].data_ptr() if high else None,
+            tabs[2 if high else 1].data_ptr(),
+            tabs[3].data_ptr() if high else None, z.data_ptr(),
+            b, t, hl, ntaps, up, down, k, _run_groups(down, k), int(high),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "fused_fir_resample")
+    fused_fir_resample_cuda.launches += 1
+    return z
+
+
+fused_fir_resample_cuda.launches = 0
+
+
+def fused_fir_resample(x: torch.Tensor, fir_taps, up: int, down: int, rtaps,
+                       *, zi=None, return_zf: bool = False,
+                       mode: str = "high"):
+    """Fused FIR→resample on ``(..., T)`` → ``(..., T·up/down)``.
+
+    ``zi``: ``(..., 2·block)`` input history (zeros if omitted);
+    ``return_zf`` also returns the final history, which is the last
+    ``2·block`` samples of ``x`` (``T ≥ 2·block`` inside the envelope).
+    Raises outside :func:`fused_supports`, on either device.
+    """
+    g = math.gcd(up, down)
+    up, down = up // g, down // g
+    fir = np.asarray(fir_taps, np.float64)
+    r_np = np.asarray(rtaps, np.float64)
+    if len(r_np) % up:
+        r_np = np.pad(r_np, (0, up - len(r_np) % up))
+    k = len(r_np) // up
+    ntaps = len(fir)
+    block = block2_block(ntaps)
+    shape = x.shape
+    t = shape[-1]
+    xb = x.reshape(-1, t).to(torch.float32).contiguous()
+    b = xb.shape[0]
+    if not fused_supports(b, ntaps, up, down, k, t):
+        raise ValueError(
+            f"fused FIR→resample envelope: channels % 8 == 0 and T a "
+            f"multiple of {fused_program_in(ntaps, up, down)} (got "
+            f"channels={b}, T={t}, ntaps={ntaps}, K={k})")
+    if zi is None:
+        hist = torch.zeros((b, 2 * block), dtype=torch.float32,
+                           device=x.device)
+    else:
+        hist = zi.reshape(b, 2 * block).to(torch.float32).contiguous()
+    if xb.is_cuda:
+        z = fused_fir_resample_cuda(xb, hist, fir, up, down, r_np, mode)
+    elif xb.device.type == "cpu":
+        z = fused_fir_resample_plain(xb, hist, fir, up, down, r_np, mode)
+    else:
+        raise ValueError(f"unsupported device {x.device}")
+    n_out = resample_output_len(t, up, down)
+    z = z[:, :n_out].reshape(shape[:-1] + (n_out,)).to(x.dtype)
+    if not return_zf:
+        return z
+    zf = xb[:, -2 * block:].to(x.dtype).reshape(shape[:-1] + (2 * block,))
+    return z, zf

@@ -1,0 +1,10 @@
+"""Chain composition and streaming execution."""
+
+from llzlab_tpu_torch.pipeline.chain import (  # noqa: F401
+    Chain,
+    Stage,
+    FIRStage,
+    ResampleStage,
+    FusedFirResampleStage,
+    LambdaStage,
+)
