@@ -1,20 +1,36 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``llzlab_tpu_torch``) on one GPU.
 
-Drives the port's main path, the headline streaming chain (64 channels,
-``firwin(1024, 0.25, hamming)`` FIR into a 147/160 polyphase resampler with
-64 taps per phase, 245 760 samples per channel per block), through the
-hand-written CUDA kernels, and checks it:
+Drives the port's two main paths through the hand-written CUDA kernels and
+checks them:
 
-1. device: the GPU's name and power limit; both kernels built with nvcc;
-2. each kernel against its plain PyTorch version on the card, at a small
-   shape and at the headline shape, in both precision modes;
-3. the main path: ``Chain([FusedFirResampleStage(...)])`` streams three
-   blocks through kernel B1 (bit-exact against one shot, SNR against a
-   scipy float64 golden), then the unfused ``Chain([FIRStage, ResampleStage])``
-   through kernel B2; the launch counts of that phase show the kernels ran;
-4. CUDA-event times of each kernel and its plain version at the headline
-   shape.
+1. device: the GPU's name and power limit; all four kernels built with
+   nvcc, in parallel;
+2. each kernel against its plain PyTorch version on the card: B1 (fused
+   FIR→resample) and B2 (block2 FIR) at a small shape, at the headline
+   shape and at the shapes one rank of the channelizer gives them (1024 and
+   256 channels of 327 680 samples, the 0.4 taps), in both precision modes;
+   B3 (halo ring) bitwise at the
+   channelizer's halo widths on a 4-rank time mesh; B4 (halo-fused FIR)
+   against its plain version and bitwise against B2 on the unsharded
+   stream, over three epochs; a receive whose sender is late must raise,
+   from ``check_exchanges`` and from the next sharded step;
+3. the headline chain (64 channels, ``firwin(1024, 0.25)`` into 147/160
+   with 64 taps per phase, 245 760 samples per block):
+   ``Chain([FusedFirResampleStage])`` streams through B1 (bit-exact
+   against one shot, SNR against a scipy float64 golden), then the unfused
+   chain through B2;
+4. the channelizer at full width (``configs/channelizer_1024ch.json``: 1024
+   channels, 1024-tap 0.4 FIR, 147/160, 2048-point frames) on a 4-rank time
+   mesh of 327 680 samples per rank: ``step`` (B1), ``sharded_step`` with
+   ``halo="rdma"`` and ``"ppermute"`` for ``fir_method="fused"`` (B3 + B1)
+   and ``"block2"`` (B3 + B2), and ``halo="rdma_fused"`` at 256 channels
+   (B4 + B3); rdma equals ppermute bitwise, sharded equals unsharded
+   streaming, 8 channels agree with scipy float64, a second super-block
+   carries the state; the launch counts of each path show its kernels ran;
+5. CUDA-event times of each kernel, its plain version and one library call
+   for the same function, beside the least time the card could take, and
+   of one sharded step per halo mode.
 
 Every phase raises on failure.  The last line of stdout is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -25,6 +41,7 @@ Needs one CUDA GPU; exits non-zero, printing no result, without one.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -34,7 +51,15 @@ import time
 import numpy as np
 
 NTAPS, CUTOFF, UP, DOWN, K = 1024, 0.25, 147, 160, 64
-CHANNELS, BLOCK_T, NBLOCKS = 64, 245760, 3
+CHANNELS, BLOCK_T, NBLOCKS = 64, 245760, 2
+#: the channelizer of configs/channelizer_1024ch.json on a 4-rank time mesh
+CZ_CHANNELS, CZ_RANKS, CZ_FUSED_CHANNELS, CZ_GOLDEN_CHANNELS = 1024, 4, 256, 8
+#: sharded against unsharded streaming, on the spectra
+SHARDED_FLOOR_DB = 140.0
+#: the card's published peaks: fp32 outside the tensor cores, HBM3
+FP32_PEAK, HBM_RATE = 67e12, 3.35e12
+KERNEL_NAMES = ("block2_fir", "fused_fir_resample", "halo_ring",
+                "halo_fir_fused")
 SMALL = dict(ntaps=129, cutoff=0.2, up=3, down=4, k=8, channels=8)
 #: SNR floors of a kernel against its plain version run in float64
 KERNEL_FLOOR_DB = {"highest": 130.0, "high": 75.0}
@@ -45,14 +70,6 @@ MODES = ("high", "highest")
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def snr_db(ref, y) -> float:
-    ref = np.asarray(ref, np.float64)
-    err = ref - np.asarray(y, np.float64)
-    perr = float(np.sum(err * err))
-    return float("inf") if perr == 0.0 else \
-        10.0 * np.log10(float(np.sum(ref * ref)) / perr)
 
 
 def min_channel_snr_db(ref, y) -> float:
@@ -80,17 +97,75 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
+def device_snr_db(ref, y) -> float:
+    """SNR of ``y`` against ``ref`` (real or complex tensors on the card),
+    summed in float64 channel by channel to bound the temporaries."""
+    import torch
+
+    psig = perr = 0.0
+    for r, v in zip(ref, y):
+        psig += float(torch.sum(r.abs().double() ** 2))
+        perr += float(torch.sum((r - v).abs().double() ** 2))
+    return float("inf") if perr == 0.0 else 10.0 * np.log10(psig / perr)
+
+
+def fir_bound_ms(flop: float, nbytes: float):
+    """Least time for ``flop`` fp32 operations and ``nbytes`` of device
+    memory traffic, and which of the two sets it."""
+    t_op, t_by = flop / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return (t_op, "operations") if t_op >= t_by else (t_by, "bytes")
+
+
+def host_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median host-clock time of enqueuing ``fn()`` in milliseconds,
+    without waiting for the card (which is drained between calls)."""
+    import torch
+
+    times = []
+    for i in range(warmup + iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times[warmup:]))
+
+
 def main() -> int:
     import scipy.signal as ss
     import torch
+    import torch.nn.functional as F
 
-    from llzlab_tpu_torch import (Chain, FIRStage, FusedFirResampleStage,
-                                  ResampleStage, firwin, resample_taps)
+    from llzlab_tpu_torch import (Chain, Channelizer, FIRStage,
+                                  FusedFirResampleStage, ResampleStage,
+                                  firwin, gather_time, irfft, resample_taps,
+                                  shard_time)
     from llzlab_tpu_torch.kernels import _build
     from llzlab_tpu_torch.kernels import block2_fir as bf
     from llzlab_tpu_torch.kernels import fused_fir_resample as ff
+    from llzlab_tpu_torch.kernels import halo_fir_fused as hf
+    from llzlab_tpu_torch.kernels import halo_ring as hr
     from llzlab_tpu_torch.ops.fir import block2_block
+    from llzlab_tpu_torch.parallel.halo import left_halo
+    from llzlab_tpu_torch.parallel.mesh import TIME_AXIS, DspMesh
     from llzlab_tpu_torch.runtime.platform import require_cuda
+
+    wrappers = {"block2_fir": bf.block2_fir_cuda,
+                "fused_fir_resample": ff.fused_fir_resample_cuda,
+                "halo_ring": hr.left_halo_ring_cuda,
+                "halo_fir_fused": hf.block2_fir_halo_fused_cuda}
+
+    def reset_launches():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_launches(names, what):
+        got = {name: wrappers[name].launches for name in names}
+        log(f"[{what}] kernel launches on this path: {got}")
+        if min(got.values()) < 1:
+            raise RuntimeError(f"{what}: a kernel of the path never ran: "
+                               f"{got}")
+        return got
 
     # ---- phase 1: device and build ------------------------------------
     dev = require_cuda()
@@ -103,15 +178,16 @@ def main() -> int:
         f"{torch.version.cuda}; nvidia-smi name, power.limit:")
     log(smi)
     t0 = time.perf_counter()
-    for name in ("block2_fir", "fused_fir_resample"):
-        _build.build(name)
-    log(f"[build] block2_fir.cu + fused_fir_resample.cu for sm_90a in "
-        f"{time.perf_counter() - t0:.2f} s")
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_NAMES)) as pool:
+        list(pool.map(_build.build, KERNEL_NAMES))  # one nvcc each, together
+    log(f"[build] {', '.join(n + '.cu' for n in KERNEL_NAMES)} for sm_90a "
+        f"in {time.perf_counter() - t0:.2f} s")
 
     rng = np.random.default_rng(0)
-    errors = {"block2_fir": 0.0, "fused_fir_resample": 0.0}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errors = dict.fromkeys(KERNEL_NAMES, 0.0)
 
-    # ---- phase 2: kernels against their plain versions -----------------
+    # ---- phase 2a: B1 and B2 against their plain versions --------------
     def check_kernels(label, ntaps, cutoff, up, down, k, channels, t):
         taps = firwin(ntaps, cutoff, window="hamming")
         rtaps = resample_taps(up, down, k)
@@ -144,7 +220,8 @@ def main() -> int:
                     raise RuntimeError(f"{name} {mode} {label}: bad output "
                                        f"{tuple(got.shape)}")
                 err = float((got - plain).abs().max())
-                snr = snr_db(ref.cpu().numpy(), got.cpu().numpy())
+                snr = device_snr_db(ref, got)
+                del got, plain
                 errors[name] = max(errors[name], err)
                 log(f"[kernel] {name} {mode:7s} {label}: max|kernel-plain| "
                     f"{err:.3e}, SNR vs plain f64 {snr:.1f} dB "
@@ -159,7 +236,152 @@ def main() -> int:
                   3 * ff.fused_program_in(s["ntaps"], s["up"], s["down"]))
     check_kernels("headline", NTAPS, CUTOFF, UP, DOWN, K, CHANNELS, BLOCK_T)
 
-    # ---- phase 3: the main path ----------------------------------------
+    # ---- the channelizer, its mesh and its data --------------------------
+    chan = {m: Channelizer(fir_method=m, device=dev)
+            for m in ("fused", "block2")}
+    if Channelizer(device=dev).fir_method != "fused":
+        raise RuntimeError("Channelizer(fir_method='auto') did not resolve "
+                           "to 'fused' on the card")
+    t_loc = chan["fused"].block_multiple()
+    if t_loc != chan["block2"].block_multiple() or t_loc != 327680:
+        raise RuntimeError(f"block_multiple {t_loc} is not the config's")
+    cz_taps = chan["block2"].fir_taps
+    cz_block = block2_block(len(cz_taps))
+    # B1 and B2 at the shapes each rank of the channelizer gives them: all
+    # 1024 channels (and the 256 of the rdma_fused path) of one shard, with
+    # the channelizer's taps
+    for c in (CZ_CHANNELS, CZ_FUSED_CHANNELS):
+        check_kernels(f"channelizer {c}ch", len(cz_taps), 0.4, UP, DOWN, K,
+                      c, t_loc)
+        torch.cuda.empty_cache()
+    mesh = DspMesh([dev] * CZ_RANKS, (TIME_AXIS,))
+    x_cz = torch.randn((CZ_CHANNELS, CZ_RANKS * t_loc), generator=gen,
+                       device=dev, dtype=torch.float32)
+    parts = shard_time(x_cz, mesh)
+    parts_f = shard_time(x_cz[:CZ_FUSED_CHANNELS], mesh)
+    torch.cuda.synchronize()
+
+    def on_mesh(fn, m=mesh):
+        """``fn()`` with the mesh ordered behind the current stream before
+        and the current stream behind the mesh after."""
+        def run():
+            m.fork()
+            out = fn()
+            m.join()
+            return out
+        return run
+
+    # ---- phase 2b: B3 against its plain version, bitwise ----------------
+    halo_widths = (chan["block2"].h_rs, chan["block2"].h_fir,
+                   chan["fused"].h_fir)  # 63, 1024, 2048
+    for h in halo_widths:
+        for carry in (None, torch.randn((CZ_CHANNELS, h), generator=gen,
+                                        device=dev)):
+            got = on_mesh(lambda: hr.left_halo_ring(
+                parts, h, mesh, first_shard_value=carry))()
+            plain = on_mesh(lambda: hr.left_halo_ring_plain(
+                parts, h, mesh, first_shard_value=carry))()
+            hr.check_exchanges(mesh)
+            torch.cuda.synchronize()
+            for r in range(CZ_RANKS):
+                if got[r].shape != (CZ_CHANNELS, h) or \
+                        not torch.equal(got[r], plain[r]):
+                    raise RuntimeError(f"halo_ring h={h} rank {r}: kernel "
+                                       f"!= plain version")
+                errors["halo_ring"] = max(errors["halo_ring"], float(
+                    (got[r] - plain[r]).abs().max()))
+            log(f"[kernel] halo_ring h={h:4d} carry={carry is not None}: "
+                f"{CZ_RANKS} ranks x ({CZ_CHANNELS}, {h}) == plain version "
+                f"bitwise")
+
+    # ---- phase 2c: B4 against its plain version and against B2 ----------
+    for n in (2, CZ_RANKS):
+        sub = DspMesh([dev] * n, (TIME_AXIS,))
+        sub_parts = [p for p in parts_f[:n]]
+        stream = x_cz[:CZ_FUSED_CHANNELS, : n * t_loc]
+        for mode in MODES:
+            carry = None
+            for epoch in (1, 2, 3):  # no carry, then twice a nonzero one
+                got = on_mesh(lambda: hf.block2_fir_halo_fused(
+                    sub_parts, cz_taps, sub, first_shard_value=carry,
+                    mode=mode), sub)()
+                hr.check_exchanges(sub)
+                plain = on_mesh(lambda: hf.block2_fir_halo_fused_plain(
+                    sub_parts, cz_taps, sub, first_shard_value=carry,
+                    mode=mode), sub)()
+                lead = (torch.zeros((CZ_FUSED_CHANNELS, cz_block), device=dev)
+                        if carry is None else carry)
+                xpad = torch.cat([lead, stream], dim=-1)
+                whole = bf.block2_fir_cuda(xpad, cz_taps, cz_block, mode)
+                ref64 = bf.block2_fir_plain(xpad.double(), cz_taps, cz_block,
+                                            "highest")
+                torch.cuda.synchronize()
+                got, plain = torch.cat(got, -1), torch.cat(plain, -1)
+                if not torch.equal(got, whole):
+                    raise RuntimeError(
+                        f"halo_fir_fused n={n} {mode} epoch {epoch}: shards "
+                        f"!= block2_fir_cuda on the unsharded stream")
+                err = float((got - plain).abs().max())
+                snr = device_snr_db(ref64, got)
+                errors["halo_fir_fused"] = max(errors["halo_fir_fused"], err)
+                log(f"[kernel] halo_fir_fused {mode:7s} n={n} epoch {epoch}: "
+                    f"== block2_fir_cuda unsharded bitwise, max|kernel-plain|"
+                    f" {err:.3e}, SNR vs plain f64 {snr:.1f} dB (floor "
+                    f"{KERNEL_FLOOR_DB[mode]})")
+                if not snr >= KERNEL_FLOOR_DB[mode]:
+                    raise RuntimeError(f"halo_fir_fused {mode}: SNR {snr:.1f}")
+                # the next epoch starts from this stream's last block
+                carry = stream[:, -cz_block:].contiguous()
+                del whole, ref64, xpad, got, plain
+    torch.cuda.empty_cache()
+
+    # ---- phase 2d: a receive whose sender is late must raise ------------
+    late = DspMesh([dev] * 2, (TIME_AXIS,))
+    ring = on_mesh(lambda: hr.left_halo_ring(parts[:2], 64, late), late)
+    ring()
+    hr.check_exchanges(late)
+    limit, hr.WAIT_LIMIT_S = hr.WAIT_LIMIT_S, 0.2
+    t0 = time.perf_counter()
+    with late.on(0):
+        torch.cuda._sleep(int(2e9))  # about a second of rank 0's stream
+    ring()
+    try:
+        hr.check_exchanges(late)
+    except RuntimeError as exc:
+        log(f"[kernel] halo_ring with its sender held back raised after "
+            f"{time.perf_counter() - t0:.2f} s: {exc}")
+    else:
+        raise RuntimeError("a halo receive whose sender came late by more "
+                           "than the wait limit did not raise")
+    finally:
+        hr.WAIT_LIMIT_S = limit
+    ring()
+    hr.check_exchanges(late)  # and the exchange works again afterwards
+    # the same through the channelizer: the step after the one whose
+    # receive timed out raises, with no check_exchanges by the caller
+    step = chan["block2"].sharded_step(late, halo="rdma")
+    st = chan["block2"].init_state(CZ_FUSED_CHANNELS)
+    step(parts_f[:2], st)
+    hr.WAIT_LIMIT_S = 0.2
+    with late.on(0):
+        torch.cuda._sleep(int(2e9))
+    try:
+        step(parts_f[:2], st)  # times out on the card, returns all the same
+        try:
+            step(parts_f[:2], st)
+        except RuntimeError as exc:
+            log(f"[channelizer] the sharded step after one whose halo never "
+                f"arrived raised: {exc}")
+        else:
+            raise RuntimeError("a sharded step whose halo receive timed out "
+                               "was not reported by the next step")
+    finally:
+        hr.WAIT_LIMIT_S = limit
+    step(parts_f[:2], st)
+    hr.check_exchanges(late)
+    del step, st
+
+    # ---- phase 3: the headline chain ------------------------------------
     taps = firwin(NTAPS, CUTOFF, window="hamming")
     rtaps = resample_taps(UP, DOWN, K)
     x_np = rng.standard_normal(
@@ -173,8 +395,7 @@ def main() -> int:
     blocks = [x_all[:, i * BLOCK_T:(i + 1) * BLOCK_T].contiguous()
               for i in range(NBLOCKS)]
 
-    bf.block2_fir_cuda.launches = 0
-    ff.fused_fir_resample_cuda.launches = 0
+    reset_launches()
     for mode in MODES:
         chain = Chain([FusedFirResampleStage(
             taps, UP, DOWN, rtaps=rtaps, channels=CHANNELS, device=dev,
@@ -209,57 +430,235 @@ def main() -> int:
         if not (np.isfinite(z).all() and snr >= CHAIN_FLOOR_DB[mode]):
             raise RuntimeError(f"unfused chain {mode}: SNR {snr:.1f} dB")
     os.environ.pop("LLZ_MATMUL_PRECISION")
-    launches = {"block2_fir": bf.block2_fir_cuda.launches,
-                "fused_fir_resample": ff.fused_fir_resample_cuda.launches}
-    log(f"[chain] kernel launches in the main-path phase: {launches}")
-    if min(launches.values()) < 1:
-        raise RuntimeError(f"a kernel of the main path never ran: {launches}")
+    read_launches(("block2_fir", "fused_fir_resample"), "chain")
+    del streamed, one_shot, golden, y64
 
-    # ---- phase 4: times at the headline shape --------------------------
+    # ---- phase 4: the channelizer at full width --------------------------
+    t0 = time.perf_counter()
+    xg = x_cz[:CZ_GOLDEN_CHANNELS].cpu().numpy().astype(np.float64)
+    cz_golden = ss.upfirdn(chan["fused"].resample_taps,
+                           ss.lfilter(cz_taps, [1.0], xg, axis=-1),
+                           UP, DOWN, axis=-1)
+    log(f"[golden] scipy f64 lfilter + upfirdn of {CZ_GOLDEN_CHANNELS} "
+        f"channelizer channels in {time.perf_counter() - t0:.1f} s")
+
+    def streaming(ch, x, n_steps):
+        """Unsharded streaming at t_loc granularity: per super-block the
+        frames of all pieces, and the final state."""
+        st = ch.init_state(x.shape[0])
+        outs = []
+        for _ in range(n_steps):
+            frames = []
+            for j in range(CZ_RANKS):
+                spec, st = ch.step(x[:, j * t_loc:(j + 1) * t_loc], st)
+                frames.append(spec)
+            outs.append(torch.cat(frames, dim=1))
+        return outs, st
+
+    def sharded(ch, shards, halo, n_steps):
+        step = ch.sharded_step(mesh, halo=halo)
+        st = ch.init_state(shards[0].shape[0], device=mesh.ranks[0].device)
+        outs = []
+        for _ in range(n_steps):
+            spec, st = step(shards, st)
+            outs.append(gather_time(spec, mesh, dim=1))
+        hr.check_exchanges(mesh)
+        return outs, st
+
+    def check_sharded(label, ch, x, shards, halos):
+        """Two super-blocks through ``step`` and through ``sharded_step``
+        for each halo mode; the first halo mode is compared bitwise with
+        the others, and with unsharded streaming at the floor."""
+        ref, st_ref = streaming(ch, x, 2)
+        nf = ref[0].shape[1]
+        if ref[0].shape != (x.shape[0], nf, ch.fft_n // 2 + 1) or not all(
+                bool(torch.isfinite(torch.view_as_real(v)).all())
+                for v in ref):
+            raise RuntimeError(f"{label}: bad step output {ref[0].shape}")
+        first = None
+        for halo in halos:
+            got, st = sharded(ch, shards, halo, 2)
+            for i in (0, 1):
+                snr = device_snr_db(ref[i], got[i])
+                log(f"[channelizer] {label} halo={halo}: super-block {i + 1} "
+                    f"{tuple(got[i].shape)} vs unsharded streaming "
+                    f"{snr:.1f} dB (floor {SHARDED_FLOOR_DB})")
+                if got[i].shape != ref[i].shape or \
+                        not snr >= SHARDED_FLOOR_DB:
+                    raise RuntimeError(f"{label} halo={halo}: sharded != "
+                                       f"unsharded streaming ({snr:.1f} dB)")
+            for a, b in zip(st, st_ref):
+                if not torch.equal(a, b):
+                    raise RuntimeError(f"{label} halo={halo}: carried state "
+                                       f"!= unsharded streaming's")
+            if first is None:
+                first = got
+            elif not all(torch.equal(a, b) for a, b in zip(first, got)):
+                raise RuntimeError(f"{label}: halo={halo} != "
+                                   f"halo={halos[0]} bitwise")
+            else:
+                log(f"[channelizer] {label}: halo={halo} == halo={halos[0]} "
+                    f"bitwise, both super-blocks")
+        # the resampled signal behind the first super-block's frames
+        z = irfft(first[0][:CZ_GOLDEN_CHANNELS], ch.fft_n).reshape(
+            CZ_GOLDEN_CHANNELS, -1).cpu().numpy()
+        snr = min_channel_snr_db(cz_golden[:, :z.shape[1]], z)
+        log(f"[channelizer] {label}: {CZ_GOLDEN_CHANNELS} channels vs scipy "
+            f"f64, min-channel SNR {snr:.1f} dB (floor "
+            f"{CHAIN_FLOOR_DB['highest']})")
+        if not snr >= CHAIN_FLOOR_DB["highest"]:
+            raise RuntimeError(f"{label}: SNR vs scipy {snr:.1f} dB")
+
+    reset_launches()
+    check_sharded(f"fused {CZ_CHANNELS}ch", chan["fused"], x_cz, parts,
+                  ("rdma", "ppermute"))
+    torch.cuda.empty_cache()
+    check_sharded(f"block2 {CZ_CHANNELS}ch", chan["block2"], x_cz, parts,
+                  ("rdma", "ppermute"))
+    torch.cuda.empty_cache()
+    check_sharded(f"block2 {CZ_FUSED_CHANNELS}ch", chan["block2"],
+                  x_cz[:CZ_FUSED_CHANNELS], parts_f,
+                  ("rdma_fused", "ppermute"))
+    torch.cuda.empty_cache()
+    launches = read_launches(KERNEL_NAMES, "channelizer")
+
+    # ---- phase 5: times ---------------------------------------------------
+    def timed(plain, kern, library=None, iters=20):
+        """Medians in ms: plain, kernel, kernel, plain within one run, then
+        the library call."""
+        p1, k1, k2, p2 = (cuda_ms(f, iters) for f in
+                          (plain, kern, kern, plain))
+        return (float(np.median([k1, k2])), float(np.median([p1, p2])),
+                None if library is None else cuda_ms(library, iters))
+
+    def conv1d_fir(xpad, taps_np):
+        """The library's causal FIR: cuDNN conv1d (TF32 off) of rows with
+        ntaps - 1 samples of history prepended, with the flipped taps."""
+        w = torch.from_numpy(taps_np[::-1].copy()).to(
+            torch.float32).to(dev)[None, None, :]
+        rows = xpad.contiguous()[:, None, :]
+        return lambda: F.conv1d(rows, w)[:, 0]
+
     block = block2_block(NTAPS)
     x = blocks[0]
     hist = torch.zeros((CHANNELS, 2 * block), device=dev)
     xpad = torch.cat([hist[:, :block], x], dim=-1).contiguous()
     samples = CHANNELS * BLOCK_T
-    times = {}
+    times, bounds = {}, {}
     for mode in MODES:
-        for name, kern, plain in (
+        for name, kern, plain, library in (
             ("block2_fir",
              lambda: bf.block2_fir_cuda(xpad, taps, block, mode),
-             lambda: bf.block2_fir_plain(xpad, taps, block, mode)),
+             lambda: bf.block2_fir_plain(xpad, taps, block, mode),
+             conv1d_fir(xpad[:, block - (NTAPS - 1):], taps)),
             ("fused_fir_resample",
              lambda: ff.fused_fir_resample_cuda(x, hist, taps, UP, DOWN,
                                                 rtaps, mode),
              lambda: ff.fused_fir_resample_plain(x, hist, taps, UP, DOWN,
-                                                 rtaps, mode)),
+                                                 rtaps, mode),
+             None),
         ):
-            # plain, kernel, kernel, plain: compare only within one run
-            p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kern, kern, plain))
-            ms, pms = float(np.median([k1, k2])), float(np.median([p1, p2]))
-            times[(name, mode)] = (ms, pms)
+            times[(name, mode)] = timed(
+                plain, kern, library if mode == "highest" else None)
+            ms, pms, lms = times[(name, mode)]
             log(f"[time] {name} {mode:7s} {CHANNELS}x{BLOCK_T}: kernel "
                 f"{ms:.3f} ms/step ({samples / ms / 1e3:.0f} Msamples/s), "
                 f"plain {pms:.3f} ms/step ({samples / pms / 1e3:.0f} "
-                f"Msamples/s) on {smi}")
+                f"Msamples/s), library {lms} ms on {smi}")
+    n_out = samples * UP // DOWN
+    bounds["block2_fir"] = fir_bound_ms(
+        2.0 * NTAPS * samples, 4.0 * (xpad.numel() + samples))
+    bounds["fused_fir_resample"] = fir_bound_ms(
+        2.0 * NTAPS * samples + 2.0 * K * n_out,
+        4.0 * (samples + hist.numel() + n_out))
+    del x_all, blocks, x, xpad
+
+    # B3 at the fused chain's halo (1024 x 2048), B4 at 256 x 327 680
+    h = chan["fused"].h_fir
+    tails = [p[:, -h:] for p in parts[:-1]]
+    recv = [torch.empty((CZ_CHANNELS, h), device=dev) for _ in tails]
+    times[("halo_ring", "highest")] = timed(
+        on_mesh(lambda: hr.left_halo_ring_plain(parts, h, mesh)),
+        on_mesh(lambda: hr.left_halo_ring(parts, h, mesh)),
+        lambda: [d.copy_(s) for d, s in zip(recv, tails)])
+    bounds["halo_ring"] = fir_bound_ms(
+        0.0, 4.0 * CZ_CHANNELS * h * (2 * CZ_RANKS - 1))
+    for what, fn in (("kernel", hr.left_halo_ring),
+                     ("plain", hr.left_halo_ring_plain)):
+        ms = host_ms(on_mesh(lambda: fn(parts, h, mesh)))
+        log(f"[time] halo_ring {what}: the host takes {ms:.3f} ms to enqueue "
+            f"one exchange of {CZ_RANKS} ranks x ({CZ_CHANNELS}, {h})")
+    for hh in halo_widths[:2]:
+        ms = cuda_ms(on_mesh(lambda: hr.left_halo_ring(parts, hh, mesh)))
+        log(f"[time] halo_ring {CZ_RANKS} ranks x ({CZ_CHANNELS}, {hh}): "
+            f"kernel {ms:.3f} ms per exchange on {smi}")
+    halo_f = left_halo(parts_f, cz_block, mesh)
+    padded = [torch.cat([hv, p], -1) for hv, p in zip(halo_f, parts_f)]
+    libs = [conv1d_fir(v[:, cz_block - (len(cz_taps) - 1):], cz_taps)
+            for v in padded]
+    for mode in MODES:
+        times[("halo_fir_fused", mode)] = timed(
+            on_mesh(lambda: hf.block2_fir_halo_fused_plain(
+                parts_f, cz_taps, mesh, mode=mode)),
+            on_mesh(lambda: hf.block2_fir_halo_fused(
+                parts_f, cz_taps, mesh, mode=mode)),
+            (lambda: [f() for f in libs]) if mode == "highest" else None,
+            iters=10)
+    hr.check_exchanges(mesh)
+    cz_samples = CZ_FUSED_CHANNELS * CZ_RANKS * t_loc
+    bounds["halo_fir_fused"] = fir_bound_ms(
+        2.0 * len(cz_taps) * cz_samples, 4.0 * 2 * cz_samples)
+    for name in ("halo_ring", "halo_fir_fused"):
+        for mode in MODES:
+            if (name, mode) in times:
+                ms, pms, lms = times[(name, mode)]
+                log(f"[time] {name} {mode:7s} {CZ_RANKS} ranks: kernel "
+                    f"{ms:.3f} ms, plain {pms:.3f} ms, library {lms} ms, "
+                    f"bound {bounds[name][0]:.3f} ms ({bounds[name][1]}) "
+                    f"on {smi}")
+    del padded, libs, halo_f, recv, tails
+    torch.cuda.empty_cache()
+
+    # one sharded step per halo mode
+    for label, ch, shards, halos in (
+            (f"fused {CZ_CHANNELS}ch", chan["fused"], parts,
+             ("rdma", "ppermute")),
+            (f"block2 {CZ_CHANNELS}ch", chan["block2"], parts,
+             ("rdma", "ppermute")),
+            (f"block2 {CZ_FUSED_CHANNELS}ch", chan["block2"], parts_f,
+             ("rdma_fused", "rdma", "ppermute"))):
+        st = ch.init_state(shards[0].shape[0])
+        for halo in halos:
+            step = ch.sharded_step(mesh, halo=halo)
+            ms = cuda_ms(lambda: step(shards, st), iters=5, warmup=1)
+            n_in = shards[0].shape[0] * CZ_RANKS * t_loc
+            log(f"[time] sharded_step {label} halo={halo}: {ms:.3f} ms per "
+                f"step of {shards[0].shape[0]}x{CZ_RANKS * t_loc} "
+                f"({n_in / ms / 1e3:.0f} Msamples/s) on {smi}")
+    hr.check_exchanges(mesh)
+    log(f"[memory] peak device memory allocated in this run: "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
 
     sources = {
-        "block2_fir": ("llzlab_tpu_torch/csrc/block2_fir.cu",
-                       "llzlab_tpu/kernels/block2_fir.py:135"),
-        "fused_fir_resample": ("llzlab_tpu_torch/csrc/fused_fir_resample.cu",
-                               "llzlab_tpu/kernels/fused_fir_resample.py:202"),
+        "fused_fir_resample": "llzlab_tpu/kernels/fused_fir_resample.py:202",
+        "block2_fir": "llzlab_tpu/kernels/block2_fir.py:135",
+        "halo_ring": "llzlab_tpu/kernels/halo_ring.py:41",
+        "halo_fir_fused": "llzlab_tpu/kernels/halo_fir_fused.py:101",
     }
     kernels = []
-    for name in ("fused_fir_resample", "block2_fir"):
-        src, replaces = sources[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
+    for name, replaces in sources.items():
+        ms, pms, lms = times[(name, "highest")]
+        entry = {
+            "name": name, "route": "cuda",
+            "source": f"llzlab_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errors[name],
-            "ms": times[(name, "highest")][0],
-            "plain_ms": times[(name, "highest")][1],
-            "ms_high": times[(name, "high")][0],
-            "plain_ms_high": times[(name, "high")][1],
-        })
+            "max_abs_err": errors[name], "ms": ms, "plain_ms": pms,
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "library_ms": lms,
+        }
+        if (name, "high") in times:
+            entry["ms_high"], entry["plain_ms_high"] = times[(name, "high")][:2]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,11 +10,14 @@ Layering:
     runtime/  — device and precision policy
     kernels/  — CUDA kernels, their builds, wrappers and plain versions
     ops/      — user-facing numerical ops
+    parallel/ — the rank mesh and the halo exchange between time shards
     pipeline/ — chain composition + streaming
+    chains/   — the channelizer, on one device and sharded over time
     utils/    — checkpoint/resume
 
-This slice holds the headline chain: FIR design, the block2 FIR, polyphase
-resampling and the fused FIR→resample step.
+Ported so far: FIR design and filtering (block2, overlap-save, direct),
+polyphase resampling, the fused FIR→resample step, the FFT entry points,
+and the channelizer with its time-sharded step.
 """
 
 __version__ = "0.1.0"
@@ -26,6 +29,23 @@ from llzlab_tpu_torch.ops import (  # noqa: F401
     resample_taps,
     fir_resample,
 )
+from llzlab_tpu_torch.ops.transform import (  # noqa: F401
+    fft,
+    ifft,
+    rfft,
+    irfft,
+    rfft_pair,
+    pair_to_complex,
+)
+from llzlab_tpu_torch.parallel import (  # noqa: F401
+    CHANNEL_AXIS,
+    TIME_AXIS,
+    DspMesh,
+    make_dsp_mesh,
+    shard_time,
+    gather_time,
+)
+from llzlab_tpu_torch.chains import Channelizer  # noqa: F401
 from llzlab_tpu_torch.pipeline import (  # noqa: F401
     Chain,
     FIRStage,

@@ -1,0 +1,372 @@
+"""Wideband channelizer, the flagship chain (port of
+``llzlab_tpu/chains/channelizer.py``).
+
+``x (C, T)`` → 1024-tap FIR band-shaping → 147/160 polyphase resample →
+2048-point spectral framing, on one device (:meth:`Channelizer.step`) or
+with time blocks spread over a 1-D time mesh
+(:meth:`Channelizer.sharded_step`).  The sharded step's only steady-state
+communication is the left halo: each rank needs its left neighbour's last
+samples as FIR history and as resampler history.  Everything else is local
+work: kernel B1 (``fir_method="fused"``) or kernel B2 plus a matrix product
+(``"block2"``), then ``torch.fft``.
+
+One process drives every rank of the mesh (``parallel/mesh.py``), so the
+sharded step takes and returns one tensor per rank where the JAX package
+passes one sharded array through ``shard_map``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from llzlab_tpu_torch.kernels import fused_fir_resample as _ff
+from llzlab_tpu_torch.kernels.halo_fir_fused import block2_fir_halo_fused
+from llzlab_tpu_torch.kernels.halo_ring import (check_exchanges,
+                                                left_halo_ring)
+from llzlab_tpu_torch.ops import fir as _fir
+from llzlab_tpu_torch.ops import resample as _rs
+from llzlab_tpu_torch.ops import transform as _tf
+from llzlab_tpu_torch.parallel.halo import left_halo
+from llzlab_tpu_torch.parallel.mesh import CHANNEL_AXIS, TIME_AXIS, DspMesh
+from llzlab_tpu_torch.runtime.platform import kernel_mode
+
+__all__ = ["Channelizer"]
+
+
+def _lcm(a, b):
+    return a * b // math.gcd(a, b)
+
+
+class Channelizer:
+    """FIR → resample → FFT chain, on one device or sharded over time.
+
+    Args:
+      fir_taps: band-shaping FIR (default 1024-tap 0.4·Nyquist lowpass).
+      up, down: resampling ratio (default 147/160 = 48 k→44.1 k).
+      fft_n: spectral frame length (default 2048).
+      resample_taps: polyphase prototype (default 64 taps/phase design).
+      fir_method: "auto" | "fused" (kernel B1,
+        ``kernels/fused_fir_resample.py``) | "block2" (kernel B2) | "ols" |
+        "direct".  "auto" resolves for ``device``: on CUDA "fused" when
+        the fused kernel's static envelope accepts the filter, else
+        "block2" up to 2048 taps, else "ols"; on the CPU "ols".
+      fft_method: passed to ``ops.transform.rfft``.
+      spec_format: "complex" (default) emits complex64 frames
+        ``(C, F, fft_n//2+1)``; "pair" emits the (re | im) pair layout
+        ``(C, F, fft_n+2)`` f32 (``ops.transform.rfft_pair``;
+        ``pair_to_complex`` converts).
+      device: where :meth:`init_state` puts the state, and what "auto"
+        resolves for.
+    """
+
+    def __init__(
+        self,
+        *,
+        fir_taps=None,
+        up: int = 147,
+        down: int = 160,
+        fft_n: int = 2048,
+        resample_taps=None,
+        taps_per_phase: int = 64,
+        fir_method: str = "auto",
+        fft_method: str = "auto",
+        spec_format: str = "complex",
+        device="cuda",
+    ):
+        if spec_format not in ("complex", "pair"):
+            raise ValueError(f"unknown spec_format {spec_format!r}")
+        self.spec_format = spec_format
+        self.device = torch.device(device)
+        if fir_taps is None:
+            fir_taps = _fir.firwin(1024, 0.4, window="hamming")
+        self.fir_taps = np.asarray(fir_taps, np.float64)
+        g = math.gcd(up, down)
+        self.up, self.down = up // g, down // g
+        if resample_taps is None:
+            resample_taps = _rs.resample_taps(self.up, self.down,
+                                              taps_per_phase)
+        rt = np.asarray(resample_taps, np.float64)
+        if len(rt) % self.up:
+            rt = np.pad(rt, (0, self.up - len(rt) % self.up))
+        self.resample_taps = rt
+        self.k = len(rt) // self.up
+        self.fft_n = fft_n
+        ntaps = len(self.fir_taps)
+        on_cuda = self.device.type == "cuda"
+        if fir_method == "auto":
+            if on_cuda and _ff.fused_static_ok(ntaps, self.up, self.down,
+                                               self.k):
+                fir_method = "fused"
+            elif on_cuda and ntaps <= 2048:
+                fir_method = "block2"
+            else:
+                fir_method = "ols"
+        self.fir_method = fir_method
+        self.fft_method = fft_method
+        self.nfft = _fir.default_nfft(ntaps)
+        if fir_method == "fused":
+            if not _ff.fused_static_ok(ntaps, self.up, self.down, self.k):
+                raise ValueError(
+                    "fir_method='fused' rejected: filter/ratio outside "
+                    "the fused kernel's envelope (see fused_static_ok)")
+            # One combined state: the last 2·block INPUT samples carry both
+            # the FIR history and the resampler's y-lookback reach.
+            self.h_fir = _ff.fused_state_len(ntaps)
+            self.h_rs = 0
+        else:
+            self.h_fir = _fir.fir_state_len(ntaps, self.nfft, fir_method)
+            self.h_rs = self.k - 1
+
+    # ---------------- granularity ----------------
+
+    def block_multiple(self, frames: str = "local") -> int:
+        """Smallest per-shard T granularity satisfying every stage: a
+        multiple of the FIR engine's hop and of ``down``, with the
+        resampled length a multiple of ``fft_n``.  ``frames="a2a"`` drops
+        the ``fft_n`` term, as in the JAX package."""
+        ntaps = len(self.fir_taps)
+        if self.fir_method == "ols":
+            hop = _fir.ols_hop(ntaps, self.nfft)
+        elif self.fir_method == "block2":
+            hop = _fir.block2_block(ntaps)
+        elif self.fir_method == "fused":
+            hop = _ff.fused_program_in(ntaps, self.up, self.down)
+        else:
+            hop = 1
+        m = _lcm(hop, self.down)
+        if frames == "a2a":
+            return m
+        # need (m·k)·up/down % fft_n == 0 → k a multiple of fft_n/gcd
+        per = m * self.up // self.down  # resampled samples per m inputs
+        k = self.fft_n // math.gcd(per, self.fft_n)
+        return m * k
+
+    # ---------------- state ----------------
+
+    def init_state(self, n_channels: int, dtype=torch.float32, *,
+                   device=None):
+        device = self.device if device is None else device
+        return (
+            torch.zeros((n_channels, self.h_fir), dtype=dtype, device=device),
+            torch.zeros((n_channels, self.h_rs), dtype=dtype, device=device),
+        )
+
+    # ---------------- single-device step ----------------
+
+    def _fused_step(self, x: torch.Tensor, hist: torch.Tensor,
+                    return_zf: bool = True):
+        """Fused-engine local compute: ``(x, 2·block input history)`` →
+        ``(z, new_history)``, or ``z`` alone without ``return_zf``.
+
+        Runs kernel B1 (its plain version on a CPU tensor) when the call's
+        shapes fit its envelope; otherwise the unfused pair on the SAME
+        state layout: the 2·block history holds the block2 FIR history,
+        and the resampler's k−1 y-samples are recomputed from it (they
+        depend only on the last k−1+ntaps−1 ≤ 2·block inputs).
+        """
+        ntaps = len(self.fir_taps)
+        c = int(np.prod(x.shape[:-1])) if x.dim() > 1 else 1
+        t = x.shape[-1]
+        if _ff.fused_supports(c, ntaps, self.up, self.down, self.k, t):
+            return _ff.fused_fir_resample(
+                x, self.fir_taps, self.up, self.down, self.resample_taps,
+                zi=hist, return_zf=return_zf, mode=kernel_mode())
+        block = _fir.block2_block(ntaps)
+        y = _fir.fir_filter(x, self.fir_taps, method="block2",
+                            zi=hist[..., -block:])
+        yh = _fir.fir_filter(hist, self.fir_taps, method="block2")
+        rs_zi = yh[..., yh.shape[-1] - (self.k - 1):]
+        z = _rs.resample_poly(y, self.up, self.down,
+                              taps=self.resample_taps, zi=rs_zi)
+        if not return_zf:
+            return z
+        zf = torch.cat([hist, x.to(hist.dtype)],
+                       dim=-1)[..., -hist.shape[-1]:]
+        return z, zf
+
+    def step(self, x: torch.Tensor, state):
+        """Unsharded step: ``(C, T)`` → ``(C, F, fft_n//2+1)``."""
+        if self.fir_method == "fused":
+            hist, rs_st = state
+            z, zf = self._fused_step(x, hist)
+            return self._frames(z), (zf, rs_st)
+        fir_st, rs_st = state
+        y, fir_tail = _fir.fir_filter(
+            x, self.fir_taps, method=self.fir_method, nfft=self.nfft,
+            zi=fir_st, return_zf=True)
+        z, rs_tail = _rs.resample_poly(
+            y, self.up, self.down, taps=self.resample_taps, zi=rs_st,
+            return_zf=True)
+        return self._frames(z), (fir_tail, rs_tail)
+
+    def _frames(self, z: torch.Tensor) -> torch.Tensor:
+        c = z.shape[0]
+        nf = z.shape[-1] // self.fft_n
+        zf = z[..., : nf * self.fft_n].reshape(c, nf, self.fft_n)
+        if self.spec_format == "pair":
+            return _tf.rfft_pair(zf, self.fft_n)
+        return _tf.rfft(zf, self.fft_n, method=self.fft_method)
+
+    # ---------------- sharded step ----------------
+
+    def sharded_step(self, mesh: DspMesh, *, halo: str = "ppermute",
+                     frames: str = "local", halo_overlap: bool = False):
+        """Build the time-sharded step ``(parts, state) → (spec_parts,
+        state)`` on a 1-D ``(time,)`` mesh.
+
+        ``parts``: one ``(C, T_loc)`` tensor per rank, on the rank's device
+        (``parallel.mesh.shard_time``), ``T_loc`` a multiple of
+        :meth:`block_multiple`.  ``spec_parts``: each rank's frames, on its
+        device (``gather_time(spec_parts, mesh, dim=1)`` joins them).
+        ``state``: the pair of :meth:`init_state`, on rank 0's device,
+        which alone consumes it; the state returned is the last rank's
+        tail, copied to rank 0 (``broadcast_from_last``'s value there).
+
+        The step's work is queued behind the caller's current stream and
+        that stream is made to wait for it; the step does not wait for its
+        own work.  With ``halo="rdma"`` or ``"rdma_fused"`` on a CUDA mesh
+        a receive can time out on the card (its sender never came), and
+        the kernel then goes on with an invalid halo.  That raises
+        ``RuntimeError`` in the NEXT call of the step, which queues its
+        own work, then waits for the previous call's and reads its error
+        words: the outputs of call ``s`` are valid once call ``s + 1``,
+        or ``kernels.halo_ring.check_exchanges(mesh)`` after the last
+        call, has returned.
+
+        ``halo``: "ppermute" (plain copies between ranks,
+        ``parallel/halo.py``), "rdma" (kernel B3, ``kernels/halo_ring.py``:
+        the exchange as a kernel of its own), or "rdma_fused" (kernel B4,
+        ``kernels/halo_fir_fused.py``: the exchange inside the block2 FIR
+        kernel, which computes every output that needs no halo while the
+        tail travels; needs ``fir_method="block2"``; the resampler's halo
+        still goes through B3).  On a CPU mesh the kernels' plain versions
+        run.
+
+        Not ported yet, each raising ``NotImplementedError``:
+        ``frames="a2a"``, ``halo_overlap=True`` and meshes with a channel
+        axis (ROADMAP queue A, "the rest of parallel/").
+        """
+        axes = tuple(mesh.axis_names)
+        if halo in ("rdma", "rdma_fused"):
+            if axes != (TIME_AXIS,):
+                raise ValueError(
+                    f"halo={halo!r} needs a 1-D (time,) mesh: the halo "
+                    "kernels address their right neighbour on one axis "
+                    "(see kernels/halo_ring.py)")
+            if halo == "rdma_fused" and self.fir_method != "block2":
+                raise ValueError(
+                    "halo='rdma_fused' fuses the exchange into the "
+                    "block2 FIR kernel — needs fir_method='block2' "
+                    f"(got {self.fir_method!r})")
+            if halo == "rdma_fused" and halo_overlap:
+                raise ValueError(
+                    "halo='rdma_fused' already overlaps the exchange "
+                    "inside the kernel; halo_overlap does not compose")
+            halo_fn = left_halo_ring
+        elif halo == "ppermute":
+            halo_fn = left_halo
+        else:
+            raise ValueError(f"unknown halo mode {halo!r}")
+        if frames not in ("local", "a2a"):
+            raise ValueError(f"unknown frames mode {frames!r}")
+        if halo_overlap and self.fir_method not in ("fused", "block2"):
+            raise ValueError(
+                "halo_overlap needs fir_method 'fused' or 'block2' "
+                f"(got {self.fir_method!r})")
+        for what, off in (("frames='a2a'", frames == "a2a"),
+                          ("halo_overlap=True", halo_overlap),
+                          (f"a mesh with axes {axes}", axes != (TIME_AXIS,))):
+            if off:
+                raise NotImplementedError(
+                    f"sharded_step with {what} is not ported yet (ROADMAP "
+                    f"queue A, 'the rest of parallel/'); the port shards "
+                    f"over a 1-D ({TIME_AXIS!r},) mesh with local frames")
+        n = len(mesh)
+
+        def per_rank(fn, *lists) -> List:
+            out = []
+            for r in range(n):
+                with mesh.on(r):
+                    out.append(fn(*(v[r] for v in lists)))
+            return out
+
+        def tails(parts: Sequence[torch.Tensor], h: int):
+            """Rank 0's copy of the last rank's last ``h`` samples."""
+            last = parts[n - 1]
+            tail = last[..., last.shape[-1] - h:]
+            mesh.after(0, n - 1)
+            with mesh.on(0) as rank:
+                return torch.empty(tail.shape, dtype=tail.dtype,
+                                   device=rank.device).copy_(tail)
+
+        kernels_exchange = halo != "ppermute" and mesh.is_cuda
+        issued = []  # per rank, the end of the previous call's work
+
+        def step(parts: Sequence[torch.Tensor], state):
+            fir_st, rs_st = state
+            mesh.fork()
+            if self.fir_method == "fused":
+                # ONE halo: the 2·block input history carries both the FIR
+                # reach and the resampler's y-lookback.
+                halos = halo_fn(parts, self.h_fir, mesh,
+                                first_shard_value=fir_st)
+                z = per_rank(
+                    lambda x, hv: self._fused_step(x, hv, return_zf=False),
+                    parts, halos)
+                new_state = (tails(parts, self.h_fir), rs_st)
+            else:
+                if halo == "rdma_fused":
+                    y = block2_fir_halo_fused(
+                        parts, self.fir_taps, mesh, first_shard_value=fir_st,
+                        mode=kernel_mode())
+                else:
+                    halos = halo_fn(parts, self.h_fir, mesh,
+                                    first_shard_value=fir_st)
+                    y = per_rank(
+                        lambda x, hv: _fir.fir_filter(
+                            x, self.fir_taps, method=self.fir_method,
+                            nfft=self.nfft, zi=hv), parts, halos)
+                fir_tail = tails(parts, self.h_fir)
+                halos_r = halo_fn(y, self.h_rs, mesh,
+                                  first_shard_value=rs_st)
+                z = per_rank(
+                    lambda v, hv: _rs.resample_poly(
+                        v, self.up, self.down, taps=self.resample_taps,
+                        zi=hv), y, halos_r)
+                new_state = (fir_tail, tails(y, self.h_rs))
+            spec = per_rank(self._frames, z)
+            previous = list(issued)
+            if kernels_exchange:
+                issued[:] = [rank.stream.record_event()
+                             for rank in mesh.ranks]
+            mesh.join()
+            if previous:
+                # with this call's work queued, so that the card stays
+                # busy: wait for the previous call's and raise if one of
+                # its receives timed out
+                check_exchanges(mesh, after=previous)
+            return spec, new_state
+
+        return step
+
+    def validate_sharded_shapes(self, mesh: DspMesh, c: int, t: int,
+                                frames: str = "local"):
+        nc = mesh.shape.get(CHANNEL_AXIS, 1)
+        nt = mesh.shape[TIME_AXIS]
+        if c % nc:
+            raise ValueError(f"C={c} not divisible by n_channel={nc}")
+        if t % nt:
+            raise ValueError(f"T={t} not divisible by n_time={nt}")
+        m = self.block_multiple(frames)
+        if (t // nt) % m:
+            raise ValueError(
+                f"T_loc={t // nt} must be a multiple of {m} "
+                f"(OLS hop × down{' × fft' if frames == 'local' else ''}"
+                " alignment)")
+        if frames == "a2a" and c % len(mesh):
+            raise ValueError(
+                f"frames='a2a' needs C={c} divisible by the device count")

@@ -59,27 +59,15 @@ block2_fir_kernel(const float* __restrict__ xpad,
   const int row = block + t;
   const float* xr = xpad + (size_t)b * row;
 
-  for (int k = tid; k < ntp; k += THREADS) {
-    if (HIGH) {
-      th[k] = k < ntaps ? __bfloat162float(taps_hi[k]) : 0.f;
-      tl[k] = k < ntaps ? __bfloat162float(taps_lo[k]) : 0.f;
-    } else {
-      th[k] = k < ntaps ? taps_f32[k] : 0.f;
-    }
-  }
+  fir_stage_taps<HIGH>(th, tl, taps_f32, taps_hi, taps_lo, ntaps, ntp, tid,
+                       THREADS);
   // xw[m] = xpad[block + n0 - (ntp - 1) + m]; zero outside the row (only
   // the zero-padded taps beyond ntaps or outputs beyond t ever see those).
   const int m0 = block + n0 - (ntp - 1);
   for (int m = tid; m < lx; m += THREADS) {
     const int idx = m0 + m;
-    const float v = (idx >= 0 && idx < row) ? xr[idx] : 0.f;
-    if (HIGH) {
-      const float hf = __bfloat162float(__float2bfloat16_rn(v));
-      xh[m] = hf;
-      xl[m] = __bfloat162float(__float2bfloat16_rn(v - hf));
-    } else {
-      xh[m] = v;
-    }
+    fir_stage_sample<HIGH>(xh, xl, m,
+                           (idx >= 0 && idx < row) ? xr[idx] : 0.f);
   }
   __syncthreads();
 

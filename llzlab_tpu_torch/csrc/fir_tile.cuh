@@ -1,6 +1,7 @@
 // Direct-form FIR over a shared-memory window, four consecutive outputs per
-// thread; the inner loop of kernels B1 (fused_fir_resample.cu, stage 1) and
-// B2 (block2_fir.cu).
+// thread; the inner loop of kernels B1 (fused_fir_resample.cu, stage 1), B2
+// (block2_fir.cu) and B4 (halo_fir_fused.cu), and the staging of B2's and
+// B4's taps and samples into that window.
 //
 // Register window: for a chunk of FIR_CHUNK taps, the four outputs read
 // FIR_CHUNK + 3 consecutive inputs.  A thread loads them once (nine aligned
@@ -21,9 +22,41 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 constexpr int FIR_CHUNK = 32;
+
+// Taps into shared memory, zero-padded from ntaps to ntp: th (and tl in
+// "high") as floats, from the f32 vector or from the bf16 hi/lo parts.
+template <bool HIGH>
+__device__ __forceinline__ void fir_stage_taps(
+    float* th, float* tl, const float* __restrict__ taps_f32,
+    const __nv_bfloat16* __restrict__ taps_hi,
+    const __nv_bfloat16* __restrict__ taps_lo, int ntaps, int ntp, int tid,
+    int nthr) {
+  for (int k = tid; k < ntp; k += nthr) {
+    if (HIGH) {
+      th[k] = k < ntaps ? __bfloat162float(taps_hi[k]) : 0.f;
+      tl[k] = k < ntaps ? __bfloat162float(taps_lo[k]) : 0.f;
+    } else {
+      th[k] = k < ntaps ? taps_f32[k] : 0.f;
+    }
+  }
+}
+
+// One sample into the window: as it is, or split into bf16 hi/lo in "high".
+template <bool HIGH>
+__device__ __forceinline__ void fir_stage_sample(float* xh, float* xl, int m,
+                                                 float v) {
+  if (HIGH) {
+    const float hf = __bfloat162float(__float2bfloat16_rn(v));
+    xh[m] = hf;
+    xl[m] = __bfloat162float(__float2bfloat16_rn(v - hf));
+  } else {
+    xh[m] = v;
+  }
+}
 
 // acc[r] = sum_j h[j] * xw[i0 + r + ntp - 1 - j] over the ntp (zero-padded)
 // taps.  Requires i0 % 4 == 0, ntp % FIR_CHUNK == 0, 16-byte aligned xh, xl,

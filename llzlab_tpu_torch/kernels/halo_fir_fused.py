@@ -1,0 +1,175 @@
+"""Kernel B4: the halo exchange fused into the block2 FIR, by hand for
+Hopper (``csrc/halo_fir_fused.cu``).
+
+Replaces the Pallas TPU kernel ``llzlab_tpu/kernels/halo_fir_fused.py``
+(``_kernel``, entry ``block2_fir_halo_fused``).  Contract (the same): on a
+1-D time mesh each rank holds ``x_local (C, T_loc)`` and gets its part
+``(C, T_loc)`` of the causal FIR of the whole stream, so that the ranks'
+outputs, concatenated, equal ``fir_filter(method="block2")`` on the
+unsharded stream; rank 0 starts from ``first_shard_value`` (a carried
+history of ``ntaps − 1 … block`` samples) or zeros.  One kernel launch per
+rank sends the rank's tail to its right neighbour, computes every output
+that needs no halo meanwhile, and computes y-block 0 once the halo has
+landed.
+
+* :func:`block2_fir_halo_fused` is the entry: a CUDA mesh launches the
+  kernel, once per rank in rank order on the rank's stream
+  (:func:`block2_fir_halo_fused_cuda`, which counts its launches in
+  ``.launches``); a CPU mesh runs the plain version.  Nothing falls back.
+* :func:`block2_fir_halo_fused_plain` is the plain PyTorch version:
+  ``left_halo``, then ``block2_fir_plain`` on ``[zeros | halo | x_local]``.
+
+The kernel's sums are kernel B2's (``csrc/fir_tile.cuh``), so on the card
+the concatenated outputs are bitwise equal to ``block2_fir_cuda`` on the
+unsharded stream.  The exchange state is B3's (``HaloExchange``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from llzlab_tpu_torch.kernels import _build
+from llzlab_tpu_torch.kernels import halo_ring as _hr
+from llzlab_tpu_torch.kernels.block2_fir import (MODES, block2_fir_plain,
+                                                 tap_tables)
+from llzlab_tpu_torch.ops.fir import block2_block
+from llzlab_tpu_torch.parallel.halo import left_halo
+from llzlab_tpu_torch.parallel.mesh import DspMesh
+
+__all__ = ["block2_fir_halo_fused", "block2_fir_halo_fused_cuda",
+           "block2_fir_halo_fused_plain", "halo_fused_supports"]
+
+
+def halo_fused_supports(channels: int, ntaps: int, t_local: int) -> bool:
+    """Shape envelope (the JAX package's, unchanged): at least two whole
+    blocks per shard, a block that is a multiple of 128, and at most 256
+    channels (the TPU kernel's single channel tile)."""
+    block = block2_block(ntaps)
+    if not (ntaps - 1 <= block and block % 128 == 0):
+        return False
+    if channels < 1 or channels > 256:
+        return False
+    nblk = t_local // block
+    return nblk >= 2 and t_local == nblk * block
+
+
+def _check(parts, taps, mesh, first_shard_value, mode):
+    """Shared argument checks; returns ``(taps f64, block, h)``."""
+    _hr.check_time_mesh(mesh, parts)
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    taps = np.asarray(taps, np.float64)
+    ntaps = len(taps)
+    block = block2_block(ntaps)
+    if parts[0].dim() != 2 or any(p.shape != parts[0].shape for p in parts):
+        raise ValueError("shards must be equal-shaped 2-D (C, T_loc) tensors")
+    b, t = parts[0].shape
+    # history width: ntaps−1 at least; callers may carry a full block (the
+    # block2 streaming state)
+    h = (ntaps - 1 if first_shard_value is None
+         else int(first_shard_value.shape[-1]))
+    if not ntaps - 1 <= h <= block:
+        raise ValueError(f"history width {h} outside [{ntaps - 1}, {block}]")
+    if not halo_fused_supports(b, ntaps, t):
+        raise ValueError(
+            f"unsupported shape for halo-fused FIR: C={b} ntaps={ntaps} "
+            f"T_loc={t} (need >=2 whole {block}-blocks)")
+    if (first_shard_value is not None
+            and tuple(first_shard_value.shape) != (b, h)):
+        raise ValueError(f"first_shard_value must be {(b, h)}, got "
+                         f"{tuple(first_shard_value.shape)}")
+    return taps, block, h
+
+
+def block2_fir_halo_fused_plain(parts: Sequence[torch.Tensor], taps,
+                                mesh: DspMesh, *,
+                                first_shard_value: Optional[torch.Tensor]
+                                = None, mode: str = "high"
+                                ) -> List[torch.Tensor]:
+    """Plain PyTorch version of kernel B4: the halo by ``left_halo``, then
+    the plain block2 FIR of ``[zeros(block − h) | halo | x_local]``."""
+    taps, block, h = _check(parts, taps, mesh, first_shard_value, mode)
+    halos = left_halo(parts, h, mesh, first_shard_value=first_shard_value)
+    out = []
+    for r, (part, halo) in enumerate(zip(parts, halos)):
+        with mesh.on(r):
+            xpad = torch.cat([F.pad(halo, (block - h, 0)), part], dim=-1)
+            out.append(block2_fir_plain(xpad, taps, block, mode))
+    return out
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.halo_fir_fused_launch.argtypes = (
+        [p, p, p, p] + [i] * 6 + [p] * 6 + [i, ll, p])
+    lib.halo_fir_fused_launch.restype = i
+
+
+def block2_fir_halo_fused_cuda(parts: Sequence[torch.Tensor], taps,
+                               mesh: DspMesh, *,
+                               first_shard_value: Optional[torch.Tensor]
+                               = None, mode: str = "high"
+                               ) -> List[torch.Tensor]:
+    """Launch kernel B4 once per rank, in rank order, each on its rank's
+    stream.  ``parts[r]``: contiguous ``(C, T_loc)`` f32 on rank ``r``'s
+    device."""
+    taps, block, h = _check(parts, taps, mesh, first_shard_value, mode)
+    b, t = parts[0].shape
+    for r, part in enumerate(parts):
+        if not part.is_cuda or part.device != mesh.ranks[r].device:
+            raise ValueError(f"shard {r} must lie on {mesh.ranks[r].device}, "
+                             f"got {part.device}")
+        if part.dtype != torch.float32 or not part.is_contiguous():
+            raise ValueError(f"shards must be contiguous float32, got "
+                             f"{part.dtype} strides {part.stride()} at rank "
+                             f"{r}")
+    lib = _build.load("halo_fir_fused", _declare)
+    ex = _hr.HaloExchange.of(mesh, b, h)
+    epoch = ex.begin()
+    high = mode == "high"
+    out = []
+    for r, part in enumerate(parts):
+        with mesh.on(r) as rank:
+            nbr_buf, nbr_flag, my_buf, my_flag, counter, err = \
+                ex.launch_args(r)
+            tabs = tap_tables(taps, mode, rank.device)
+            y = torch.empty((b, t), dtype=torch.float32, device=rank.device)
+            left = my_buf
+            if r == 0 and first_shard_value is not None:
+                carry = first_shard_value.to(
+                    device=rank.device, dtype=torch.float32).contiguous()
+                left = carry.data_ptr()
+            rc = lib.halo_fir_fused_launch(
+                part.data_ptr(), tabs[0].data_ptr(),
+                tabs[1].data_ptr() if high else None, y.data_ptr(), b, t,
+                block, len(taps), int(high), h, nbr_buf, nbr_flag, left,
+                my_flag, counter, err, epoch, int(_hr.WAIT_LIMIT_S * 1e9),
+                rank.stream.cuda_stream)
+            _build.check(rc, "halo_fir_fused")
+            ex.launched(r)
+        block2_fir_halo_fused_cuda.launches += 1
+        out.append(y)
+    return out
+
+
+block2_fir_halo_fused_cuda.launches = 0
+
+
+def block2_fir_halo_fused(parts: Sequence[torch.Tensor], taps, mesh: DspMesh,
+                          *, first_shard_value: Optional[torch.Tensor] = None,
+                          mode: str = "high") -> List[torch.Tensor]:
+    """Halo exchange + block2 FIR on a 1-D time mesh: kernel B4 on a CUDA
+    mesh, the plain version on a CPU mesh.  Orders rank against rank; the
+    caller orders the mesh against its own stream (``mesh.fork`` /
+    ``mesh.join``)."""
+    _hr.check_time_mesh(mesh, parts)
+    if mesh.is_cuda:
+        return block2_fir_halo_fused_cuda(
+            parts, taps, mesh, first_shard_value=first_shard_value, mode=mode)
+    return block2_fir_halo_fused_plain(
+        parts, taps, mesh, first_shard_value=first_shard_value, mode=mode)

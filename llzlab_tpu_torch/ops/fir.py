@@ -1,16 +1,24 @@
 """FIR filter design and filtering (port of ``llzlab_tpu/ops/fir.py``).
 
 Design is host-side float64 numpy, the same code as the JAX package, so
-the taps are bit-equal.  Filtering in this slice is the ``block2`` engine:
-direct convolution over blocks of ``block2_block(ntaps)`` samples, where
-every output block depends on its own input block and the one before it.
-A CUDA tensor runs kernel B2 (``kernels/block2_fir.py``); a CPU tensor runs
-that kernel's plain PyTorch version.  The other engines of the JAX package
-(``ols``, ``direct``, ``im2col``) come with ROADMAP slice 2.
+the taps are bit-equal.  Three filtering engines:
+
+* ``block2``: direct convolution over blocks of ``block2_block(ntaps)``
+  samples, where every output block depends on its own input block and
+  the one before it.  A CUDA tensor runs kernel B2
+  (``kernels/block2_fir.py``); a CPU tensor runs that kernel's plain
+  PyTorch version.
+* ``ols``: overlap-save through ``torch.fft`` (``ops/transform.py``).
+* ``direct``: one ``conv1d`` over the history-padded signal.
+
+The JAX package's ``im2col`` engine and its low-channel block2 fold are
+not ported yet (ROADMAP queue A, "FIR alone").
 
 Streaming: ``fir_filter(concat(a, b))`` equals ``concat(ya, yb)`` with
 ``ya, zf = fir_filter(a, return_zf=True)`` and ``yb = fir_filter(b,
-zi=zf)``, bit for bit, when ``len(a)`` is a multiple of the block.
+zi=zf)``, bit for bit for ``block2`` and ``ols`` when ``len(a)`` is a
+multiple of the block (``block2_block``) or hop (``ols_hop``).  The
+history length is ``fir_state_len(ntaps, nfft, method)``.
 """
 
 from __future__ import annotations
@@ -20,8 +28,10 @@ from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from llzlab_tpu_torch.kernels import block2_fir as _bf
+from llzlab_tpu_torch.ops import transform as _tf
 from llzlab_tpu_torch.ops.window import get_window
 from llzlab_tpu_torch.runtime.platform import kernel_mode
 
@@ -31,6 +41,7 @@ __all__ = [
     "default_nfft",
     "ols_hop",
     "fir_state_len",
+    "fir_halo",
     "block2_block",
 ]
 
@@ -141,9 +152,39 @@ def fir_state_len(ntaps: int, nfft: Optional[int] = None, method: str = "ols") -
     return nfft - ols_hop(ntaps, nfft)
 
 
+def fir_halo(ntaps: int) -> int:
+    """Samples of left-neighbour history a time shard needs."""
+    return ntaps - 1
+
+
 # ---------------------------------------------------------------------------
 # Filtering
 # ---------------------------------------------------------------------------
+
+
+def _ols_filter(xpad: torch.Tensor, taps: torch.Tensor, nfft: int,
+                hist: int) -> torch.Tensor:
+    """Overlap-save on ``(B, hist + T)`` pre-padded input → ``(B, T)``.
+
+    ``hist = nfft − hop ≥ ntaps − 1`` history samples are already
+    prepended, so each frame's first ``hist`` outputs are the circular
+    wrap-around and are dropped.
+    """
+    hop = nfft - hist
+    b, tp = xpad.shape
+    t = tp - hist
+    nframes = -(-t // hop)
+    xp = F.pad(xpad, (0, hist + nframes * hop - tp))
+    frames = xp.unfold(-1, nfft, hop)  # (B, nframes, nfft)
+    spec = _tf.rfft(frames, nfft) * _tf.rfft(taps, nfft)
+    y = _tf.irfft(spec, nfft)[:, :, hist:]
+    return y.reshape(b, nframes * hop)[:, :t]
+
+
+def _direct_filter(xpad: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """Direct convolution on ``(B, ntaps − 1 + T)`` pre-padded input
+    (``conv1d`` correlates, so the taps are flipped)."""
+    return F.conv1d(xpad[:, None, :], taps.flip(0)[None, None, :])[:, 0, :]
 
 
 def fir_filter(
@@ -151,6 +192,7 @@ def fir_filter(
     taps,
     *,
     method: str = "auto",
+    nfft: Optional[int] = None,
     zi: Optional[torch.Tensor] = None,
     return_zf: bool = False,
 ):
@@ -159,43 +201,65 @@ def fir_filter(
     Args:
       x: ``(..., T)`` tensor (compute is f32; the output has x's dtype).
       taps: ``(ntaps,)`` host taps (numpy or a CPU tensor).
-      method: "block2" or "auto" (= "block2", the only engine of this
-        slice).
-      zi: optional ``(..., block2_block(ntaps))`` initial history; zeros if
-        omitted.
-      return_zf: also return the final history.
+      method: "block2", "ols", "direct", or "auto" (= "block2").
+      nfft: overlap-save FFT size; default ``default_nfft(ntaps)``.
+      zi: optional ``(..., fir_state_len(ntaps, nfft, method))`` initial
+        history (oldest first); zeros if omitted.  "block2" also takes a
+        shorter history of ``ntaps − 1 … block`` samples and pads it on
+        the left with zeros to a block (those samples meet no tap).
+      return_zf: also return the final history (always the full state
+        length).
 
-    Precision follows ``LLZ_MATMUL_PRECISION`` (default "highest"; "high"
-    and "default" run the bf16x3 mode), as in the JAX package.
+    Precision of "block2" follows ``LLZ_MATMUL_PRECISION`` (default
+    "highest"; "high" and "default" run the bf16x3 mode), as in the JAX
+    package; "ols" and "direct" run f32.
 
-    A CUDA tensor runs kernel B2 and raises outside its envelope (channels
-    a multiple of 8, ``ntaps − 1 ≤ 2048``); a CPU tensor runs the plain
-    version.
+    With "block2" a CUDA tensor runs kernel B2 and raises outside its
+    envelope (channels a multiple of 8, ``ntaps − 1 ≤ 2048``); a CPU tensor
+    runs the plain version.
     """
     taps_host = np.asarray(
         taps.detach().cpu().numpy() if isinstance(taps, torch.Tensor)
         else taps, np.float64)
+    ntaps = len(taps_host)
     if method == "auto":
         method = "block2"
-    if method in ("ols", "direct", "im2col"):
+    if method == "im2col":
         raise NotImplementedError(
-            f"fir_filter(method={method!r}) is not ported yet "
-            f"(ROADMAP slice 2); use method='block2'")
-    if method != "block2":
+            "fir_filter(method='im2col') is not ported yet (ROADMAP queue "
+            "A, 'FIR alone'); use 'block2', 'ols' or 'direct'")
+    if method not in ("block2", "ols", "direct"):
         raise ValueError(f"unknown method {method!r}")
-    block = block2_block(len(taps_host))
+    if nfft is None:
+        nfft = default_nfft(ntaps)
+    if nfft < 2 * ntaps:
+        raise ValueError(f"nfft={nfft} too small for ntaps={ntaps}")
+    hlen = fir_state_len(ntaps, nfft, method)
     shape = x.shape
     t = shape[-1]
     xb = x.reshape(-1, t).to(torch.float32)
     b = xb.shape[0]
     if zi is None:
-        hist = torch.zeros((b, block), dtype=torch.float32, device=x.device)
+        hist = torch.zeros((b, hlen), dtype=torch.float32, device=x.device)
     else:
-        hist = zi.reshape(b, block).to(torch.float32)
+        hist = zi.reshape(b, -1).to(torch.float32)
+        short = hlen - hist.shape[-1]
+        if method == "block2" and 0 < short <= hlen - (ntaps - 1):
+            hist = F.pad(hist, (short, 0))
+        elif short:
+            raise ValueError(
+                f"zi must hold {hlen} samples for method={method!r} "
+                f"(block2 also takes {ntaps - 1}…{hlen}), got "
+                f"{hist.shape[-1]}")
     xpad = torch.cat([hist, xb], dim=-1)
-    y = _bf.block2_fir(xpad, taps_host, block, mode=kernel_mode())
+    if method == "block2":
+        y = _bf.block2_fir(xpad, taps_host, hlen, mode=kernel_mode())
+    else:
+        taps_dev = torch.from_numpy(taps_host).to(torch.float32).to(x.device)
+        y = (_ols_filter(xpad, taps_dev, nfft, hlen) if method == "ols"
+             else _direct_filter(xpad, taps_dev))
     y = y.to(x.dtype).reshape(shape)
     if not return_zf:
         return y
-    zf = xpad[:, -block:].to(x.dtype).reshape(shape[:-1] + (block,))
+    zf = xpad[:, -hlen:].to(x.dtype).reshape(shape[:-1] + (hlen,))
     return y, zf

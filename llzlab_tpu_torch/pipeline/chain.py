@@ -63,7 +63,7 @@ class FIRStage(Stage):
         if method != "block2":
             raise NotImplementedError(
                 f"FIRStage(method={method!r}) is not ported yet (ROADMAP "
-                f"slice 2); use method='block2'")
+                f"queue A, 'FIR alone'); use method='block2'")
         self.method = method
         self._state_len = _fir.fir_state_len(len(self.taps), None, method)
         self.block_multiple = _fir.block2_block(len(self.taps))

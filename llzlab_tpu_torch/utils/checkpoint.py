@@ -8,7 +8,8 @@ config hash, leaf count).  So a checkpoint written by a JAX chain resumes
 in the port, and the reverse.
 
 Chain state in the port is a tuple of tensors (one per stage, ``None`` for
-a stateless stage), possibly nested in tuples, lists or dicts.
+a stateless stage), possibly nested in tuples, lists or dicts; a
+channelizer's state is the pair ``(fir_state, rs_state)``.
 """
 
 from __future__ import annotations
@@ -102,8 +103,10 @@ def load_state(path: str, like=None, *, device="cpu"):
 
 
 def from_reference(state, device):
-    """A JAX chain state (a tuple of arrays, handed over as numpy; ``None``
-    for stateless stages) as the port's tuple of tensors on ``device``."""
+    """A JAX streaming state, handed over as numpy arrays, as the port's
+    state on ``device``: a chain's tuple (``None`` for stateless stages), or
+    a channelizer's ``(fir_state, rs_state)`` pair, whose second leaf is the
+    ``(C, 0)`` placeholder with the fused engine.  The structure is kept."""
     if state is None:
         return None
     if isinstance(state, (tuple, list)):

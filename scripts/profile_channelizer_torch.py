@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""Where one sharded channelizer step of the PyTorch/CUDA port spends its
+time on the GPU.
+
+Runs ``Channelizer.sharded_step`` (``llzlab_tpu_torch``) on a 1-D time mesh
+whose ranks all sit on the current card, a few steps under
+``torch.profiler``, and prints the device time of each kernel per step
+(summed over the ranks' streams), the step's CUDA-event time and the host
+time to enqueue it.  Needs one CUDA GPU.
+
+    python3 scripts/profile_channelizer_torch.py --method fused --halo rdma
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--channels", type=int, default=1024)
+    ap.add_argument("--ranks", type=int, default=4)
+    ap.add_argument("--method", default="fused", choices=("fused", "block2"))
+    ap.add_argument("--halo", default="rdma",
+                    choices=("rdma", "rdma_fused", "ppermute"))
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from llzlab_tpu_torch import Channelizer, shard_time
+    from llzlab_tpu_torch.kernels.halo_ring import check_exchanges
+    from llzlab_tpu_torch.parallel.mesh import TIME_AXIS, DspMesh
+    from llzlab_tpu_torch.runtime.platform import require_cuda
+
+    dev = require_cuda()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[dev.index or 0]
+    chan = Channelizer(fir_method=args.method, device=dev)
+    mesh = DspMesh([dev] * args.ranks, (TIME_AXIS,))
+    t_loc = chan.block_multiple()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    x = torch.randn((args.channels, args.ranks * t_loc), generator=gen,
+                    device=dev)
+    parts = shard_time(x, mesh)
+    step = chan.sharded_step(mesh, halo=args.halo)
+    state = chan.init_state(args.channels)
+    for _ in range(2):  # build, tables, allocator
+        _, state = step(parts, state)
+    check_exchanges(mesh)
+    torch.cuda.synchronize()
+
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        begin.record()
+        for _ in range(args.steps):
+            _, state = step(parts, state)
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+        torch.cuda.synchronize()
+    check_exchanges(mesh)
+    step_ms = begin.elapsed_time(end) / args.steps
+
+    rows = [(e.key, e.device_time_total / 1e3 / args.steps, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    if busy_ms <= 0.0:
+        print("torch.profiler saw no device time", file=sys.stderr)
+        return 1
+    print(f"[profile] {smi}; fir_method={args.method} halo={args.halo} "
+          f"{args.channels} x {args.ranks * t_loc} on {args.ranks} ranks, "
+          f"{args.steps} steps under torch.profiler")
+    print(f"[profile] per step: CUDA events {step_ms:.3f} ms, host enqueue "
+          f"{enqueue_ms:.3f} ms, kernel time summed over streams "
+          f"{busy_ms:.3f} ms")
+    for key, ms, count in rows[: args.top]:
+        print(f"[profile] {ms:9.3f} ms  {100 * ms / busy_ms:5.1f} %  "
+              f"{count / args.steps:6.1f} launches  {key[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -89,8 +89,26 @@ def test_cpu_path_runs_plain_version_and_kernel_wrapper_needs_cuda():
         bf.block2_fir_cuda(xpad, taps, block)
 
 
-@pytest.mark.parametrize("method", ["ols", "direct", "im2col"])
+@pytest.mark.parametrize("method", ["im2col"])
 def test_unported_methods_raise(method):
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         pfir.fir_filter(torch.zeros(8, 256), pfir.firwin(129, 0.2),
                         method=method)
+    with pytest.raises(ValueError, match="unknown method"):
+        pfir.fir_filter(torch.zeros(8, 256), pfir.firwin(129, 0.2),
+                        method="fft")
+
+
+@pytest.mark.parametrize("ntaps", [129, 256])
+def test_plain_matches_pallas_kernel_highcat_body(ntaps):
+    """``_kernel_highcat`` is an alternate body behind the same
+    ``pallas_call`` as ``_kernel_high`` and computes the same bf16x3
+    function, so kernel B2 is its counterpart too."""
+    taps, block, x, hist = _signal(ntaps, seed=8)
+    xpad = np.concatenate([hist, x], axis=1)
+    ref = np.asarray(rbf.block2_fir_pallas(
+        jnp.asarray(xpad), taps, block, mode="highcat", interpret=True))
+    got = bf.block2_fir_plain(torch.from_numpy(xpad), taps, block,
+                              mode="high")
+    assert got.shape == ref.shape
+    assert snr_db(ref, got.numpy()) >= VS_KERNEL_DB["high"]

@@ -2,6 +2,7 @@
 package's chains, checkpoint hand-over from the JAX chain to the port, and
 the port's independence from JAX."""
 
+import os
 import subprocess
 import sys
 
@@ -164,11 +165,25 @@ def test_kernel_stage_rejects_bad_batch():
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py's own imports, load
+    without JAX and without the JAX package."""
     code = (
-        "import sys, llzlab_tpu_torch, llzlab_tpu_torch.kernels.block2_fir, "
-        "llzlab_tpu_torch.kernels.fused_fir_resample, "
-        "llzlab_tpu_torch.utils.checkpoint\n"
+        "import importlib, pkgutil, sys\n"
+        "import llzlab_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "llzlab_tpu_torch.__path__, 'llzlab_tpu_torch.')]\n"
+        "for needed in ('chains.channelizer', 'parallel.mesh', "
+        "'parallel.halo', 'kernels.halo_ring', 'kernels.halo_fir_fused', "
+        "'kernels.block2_fir', 'kernels.fused_fir_resample', "
+        "'ops.transform', 'utils.checkpoint'):\n"
+        "    assert 'llzlab_tpu_torch.' + needed in names, needed\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "import scipy.signal\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'llzlab_tpu' or m.startswith('llzlab_tpu.')]\n"
         "assert not bad, bad\n")
-    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   cwd=root)

@@ -56,3 +56,117 @@ def test_kernels_match_plain_versions(mode):
                                       DOWN, rtaps, "highest")
     assert z.shape == ref.shape
     assert _snr_db(ref, z) >= FLOOR_DB[mode]
+
+
+def _time_mesh(n):
+    from llzlab_tpu_torch.parallel.mesh import TIME_AXIS, DspMesh
+
+    return DspMesh(["cuda"] * n, (TIME_AXIS,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [7, 63, 128])
+@pytest.mark.parametrize("with_carry", [False, True])
+def test_halo_ring_kernel_matches_plain_version(h, with_carry):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from llzlab_tpu_torch.kernels import halo_ring as hr
+
+    rng = np.random.default_rng(42)
+    mesh = _time_mesh(4)
+    # rows strided (a column slice of a wider tensor): tails start at any
+    # 4-byte alignment
+    wide = torch.from_numpy(
+        rng.standard_normal((4, 24, 300)).astype(np.float32)).cuda()
+    parts = [wide[r, :, 3:259] for r in range(4)]
+    carry = (torch.from_numpy(rng.standard_normal((24, h)).astype(np.float32))
+             .cuda() if with_carry else None)
+    n = hr.left_halo_ring_cuda.launches
+    for _ in range(3):  # three epochs: the receive buffer is reused twice
+        mesh.fork()
+        got = hr.left_halo_ring(parts, h, mesh, first_shard_value=carry)
+        mesh.join()
+    assert hr.left_halo_ring_cuda.launches == n + 12
+    hr.check_exchanges(mesh)
+    plain = hr.left_halo_ring_plain(parts, h, mesh, first_shard_value=carry)
+    torch.cuda.synchronize()
+    for a, b in zip(got, plain):
+        assert a.shape == (24, h) and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["high", "highest"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_halo_fir_fused_kernel_matches_plain_and_unsharded_kernel(n, mode):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from llzlab_tpu_torch.kernels import halo_fir_fused as hf
+    from llzlab_tpu_torch.kernels import halo_ring as hr
+
+    rng = np.random.default_rng(43)
+    ntaps = 256
+    taps = firwin(ntaps, 0.3)
+    block = block2_block(ntaps)
+    t_loc = 5 * block
+    mesh = _time_mesh(n)
+    x = torch.from_numpy(
+        rng.standard_normal((8, n * t_loc)).astype(np.float32)).cuda()
+    parts = [x[:, r * t_loc:(r + 1) * t_loc].contiguous() for r in range(n)]
+    for carry in (None, torch.from_numpy(rng.standard_normal(
+            (8, ntaps - 1)).astype(np.float32)).cuda()):
+        mesh.fork()
+        got = hf.block2_fir_halo_fused(parts, taps, mesh,
+                                       first_shard_value=carry, mode=mode)
+        mesh.join()
+        hr.check_exchanges(mesh)
+        lead = torch.zeros((8, block), device="cuda")
+        if carry is not None:
+            lead[:, 1:] = carry
+        xpad = torch.cat([lead, x], -1)
+        whole = bf.block2_fir_cuda(xpad, taps, block, mode)
+        assert torch.equal(torch.cat(got, -1), whole)
+        ref = bf.block2_fir_plain(xpad.double(), taps, block, "highest")
+        assert _snr_db(ref, torch.cat(got, -1)) >= FLOOR_DB[mode]
+        plain = hf.block2_fir_halo_fused_plain(
+            parts, taps, mesh, first_shard_value=carry, mode=mode)
+        assert _snr_db(ref, torch.cat(plain, -1)) >= FLOOR_DB[mode]
+
+
+@pytest.mark.cuda
+def test_empty_halo_launches_no_kernel():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from llzlab_tpu_torch.kernels import halo_ring as hr
+
+    mesh = _time_mesh(2)
+    parts = [torch.zeros((8, 64), device="cuda") for _ in range(2)]
+    n = hr.left_halo_ring_cuda.launches
+    got = hr.left_halo_ring(parts, 0, mesh)
+    assert [tuple(g.shape) for g in got] == [(8, 0), (8, 0)]
+    assert hr.left_halo_ring_cuda.launches == n
+
+
+@pytest.mark.cuda
+def test_sharded_step_after_a_timed_out_receive_raises(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from llzlab_tpu_torch import Channelizer, shard_time
+    from llzlab_tpu_torch.kernels import halo_ring as hr
+
+    chan = Channelizer(fir_taps=firwin(256, 0.4), up=3, down=4,
+                       taps_per_phase=8, fft_n=128, fir_method="block2",
+                       device="cuda")
+    mesh = _time_mesh(2)
+    x = torch.randn((8, 2 * chan.block_multiple()), device="cuda")
+    parts = shard_time(x, mesh)
+    step = chan.sharded_step(mesh, halo="rdma")
+    st = chan.init_state(8)
+    step(parts, st)
+    monkeypatch.setattr(hr, "WAIT_LIMIT_S", 0.1)
+    with mesh.on(0):
+        torch.cuda._sleep(int(2e9))  # rank 0 sends about a second late
+    step(parts, st)  # returns: the receive times out on the card
+    with pytest.raises(RuntimeError, match="never arrived"):
+        step(parts, st)
+    step(parts, st)  # the error was reported once; the exchange works again
+    hr.check_exchanges(mesh)

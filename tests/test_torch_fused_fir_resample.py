@@ -95,3 +95,21 @@ def test_envelope_enforced_on_cpu_and_kernel_wrapper_needs_cuda(case):
     with pytest.raises(ValueError, match="CUDA"):
         ff.fused_fir_resample_cuda(x, hist, *args)
     assert ff.fused_fir_resample_cuda.launches == before
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_plain_matches_pallas_kernel_v4_body(case, mode):
+    """``_kernel_v4`` is an alternate body behind the same ``pallas_call``
+    as ``_kernel`` (v3) and computes the same function, so kernel B1 is its
+    counterpart too: the port's plain version holds against it at the
+    floors it holds against v3."""
+    z, zf = ff.fused_fir_resample(
+        torch.from_numpy(case["x"]), case["taps"], UP, DOWN, case["rtaps"],
+        zi=torch.from_numpy(case["zi"]), return_zf=True, mode=mode)
+    z_ref, zf_ref = rff.fused_fir_resample_pallas(
+        jnp.asarray(case["x"]), case["taps"], UP, DOWN, case["rtaps"],
+        zi=jnp.asarray(case["zi"]), return_zf=True, mode=mode,
+        interpret=True, impl="v4", nw=1)
+    floor = VS_REF_DB[mode] if mode == "highest" else VS_KERNEL_HIGH_DB
+    assert snr_db(np.asarray(z_ref, np.float64), z.numpy()) >= floor
+    np.testing.assert_array_equal(zf.numpy(), np.asarray(zf_ref))
