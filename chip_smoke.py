@@ -10,11 +10,13 @@ checks them:
    FIR→resample) and B2 (block2 FIR) at a small shape, at the headline
    shape and at the shapes one rank of the channelizer gives them (1024 and
    256 channels of 327 680 samples, the 0.4 taps), in both precision modes;
-   B3 (halo ring) bitwise at the
-   channelizer's halo widths on a 4-rank time mesh; B4 (halo-fused FIR)
-   against its plain version and bitwise against B2 on the unsharded
-   stream, over three epochs; a receive whose sender is late must raise,
-   from ``check_exchanges`` and from the next sharded step;
+   B1 streamed as 1 + 2 and 2 + 1 programs bitwise equal to one shot (the
+   block grids differ); B3 (halo ring) bitwise at the channelizer's halo
+   widths on a 4-rank time mesh, one launch per exchange, also with a
+   rank's stream held back; B4 (halo-fused FIR) against its plain version
+   and bitwise against B2 on the unsharded stream, over three epochs; a
+   B4 receive whose sender is late must raise, from ``check_exchanges``
+   and from the next ``rdma_fused`` sharded step;
 3. the headline chain (64 channels, ``firwin(1024, 0.25)`` into 147/160
    with 64 taps per phase, 245 760 samples per block):
    ``Chain([FusedFirResampleStage])`` streams through B1 (bit-exact
@@ -25,12 +27,14 @@ checks them:
    mesh of 327 680 samples per rank: ``step`` (B1), ``sharded_step`` with
    ``halo="rdma"`` and ``"ppermute"`` for ``fir_method="fused"`` (B3 + B1)
    and ``"block2"`` (B3 + B2), and ``halo="rdma_fused"`` at 256 channels
-   (B4 + B3); rdma equals ppermute bitwise, sharded equals unsharded
-   streaming, 8 channels agree with scipy float64, a second super-block
-   carries the state; the launch counts of each path show its kernels ran;
+   (B4 + B3), in both precision modes; rdma equals ppermute bitwise,
+   sharded equals unsharded streaming, 8 channels agree with scipy
+   float64, a second super-block carries the state; the launch counts of
+   each path show its kernels ran;
 5. CUDA-event times of each kernel, its plain version and one library call
-   for the same function, beside the least time the card could take, and
-   of one sharded step per halo mode.
+   for the same function, beside the least time the card could take and
+   the time the previous version of the kernel took, and of one sharded
+   step per halo mode.
 
 Every phase raises on failure.  The last line of stdout is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -42,6 +46,7 @@ Needs one CUDA GPU; exits non-zero, printing no result, without one.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import subprocess
@@ -56,8 +61,18 @@ CHANNELS, BLOCK_T, NBLOCKS = 64, 245760, 2
 CZ_CHANNELS, CZ_RANKS, CZ_FUSED_CHANNELS, CZ_GOLDEN_CHANNELS = 1024, 4, 256, 8
 #: sharded against unsharded streaming, on the spectra
 SHARDED_FLOOR_DB = 140.0
-#: the card's published peaks: fp32 outside the tensor cores, HBM3
-FP32_PEAK, HBM_RATE = 67e12, 3.35e12
+#: the card's published peaks: fp32 outside the tensor cores, bf16 on them,
+#: HBM3
+FP32_PEAK, BF16_PEAK, HBM_RATE = 67e12, 989e12, 3.35e12
+#: what the previous versions of B1 and B3 read in this script on an H100
+#: 80GB HBM3 at 700 W (PERF.md), printed beside the new readings
+PREVIOUS = {
+    "fused_fir_resample ms": {"highest": 1.301, "high": 2.771},
+    "fused_fir_resample SNR dB": {"highest": 134.1, "high": 104.2},
+    "fused chain SNR dB": {"highest": 134.0, "high": 104.7},
+    "halo_ring ms": 0.231, "halo_ring host ms": 0.289,
+    "fused sharded step ms": 109.2,
+}
 KERNEL_NAMES = ("block2_fir", "fused_fir_resample", "halo_ring",
                 "halo_fir_fused")
 SMALL = dict(ntaps=129, cutoff=0.2, up=3, down=4, k=8, channels=8)
@@ -70,6 +85,21 @@ MODES = ("high", "highest")
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def matmul_precision(mode: str):
+    """``LLZ_MATMUL_PRECISION`` (what ops without a ``precision`` argument
+    read) set to ``mode`` for the enclosed work, then back as it was."""
+    before = os.environ.get("LLZ_MATMUL_PRECISION")
+    os.environ["LLZ_MATMUL_PRECISION"] = mode
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["LLZ_MATMUL_PRECISION"]
+        else:
+            os.environ["LLZ_MATMUL_PRECISION"] = before
 
 
 def min_channel_snr_db(ref, y) -> float:
@@ -109,10 +139,11 @@ def device_snr_db(ref, y) -> float:
     return float("inf") if perr == 0.0 else 10.0 * np.log10(psig / perr)
 
 
-def fir_bound_ms(flop: float, nbytes: float):
-    """Least time for ``flop`` fp32 operations and ``nbytes`` of device
-    memory traffic, and which of the two sets it."""
-    t_op, t_by = flop / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+def fir_bound_ms(flop: float, nbytes: float, peak: float = FP32_PEAK):
+    """Least time for ``flop`` operations at ``peak`` (fp32 outside the
+    tensor cores by default) and ``nbytes`` of device memory traffic, and
+    which of the two sets it."""
+    t_op, t_by = flop / peak * 1e3, nbytes / HBM_RATE * 1e3
     return (t_op, "operations") if t_op >= t_by else (t_by, "bytes")
 
 
@@ -223,9 +254,11 @@ def main() -> int:
                 snr = device_snr_db(ref, got)
                 del got, plain
                 errors[name] = max(errors[name], err)
+                was = (f", was >= {PREVIOUS[name + ' SNR dB'][mode]}"
+                       if name + " SNR dB" in PREVIOUS else "")
                 log(f"[kernel] {name} {mode:7s} {label}: max|kernel-plain| "
                     f"{err:.3e}, SNR vs plain f64 {snr:.1f} dB "
-                    f"(floor {KERNEL_FLOOR_DB[mode]})")
+                    f"(floor {KERNEL_FLOOR_DB[mode]}{was})")
                 if not snr >= KERNEL_FLOOR_DB[mode]:
                     raise RuntimeError(f"{name} {mode} {label}: SNR {snr:.1f}"
                                        f" dB below {KERNEL_FLOOR_DB[mode]}")
@@ -235,6 +268,37 @@ def main() -> int:
                   s["k"], s["channels"],
                   3 * ff.fused_program_in(s["ntaps"], s["up"], s["down"]))
     check_kernels("headline", NTAPS, CUTOFF, UP, DOWN, K, CHANNELS, BLOCK_T)
+
+    # B1 over three programs: one shot, 1 + 2 and 2 + 1.  The three calls'
+    # block grids differ; the outputs must not (the y windows start at
+    # multiples of 8 of the stream index)
+    for label, ntaps, cutoff, up, down, k, channels in (
+            ("small", s["ntaps"], s["cutoff"], s["up"], s["down"], s["k"],
+             s["channels"]),
+            ("headline", NTAPS, CUTOFF, UP, DOWN, K, CHANNELS)):
+        args = (firwin(ntaps, cutoff, window="hamming"), up, down,
+                resample_taps(up, down, k))
+        prog = ff.fused_program_in(ntaps, up, down)
+        x = torch.from_numpy(rng.standard_normal(
+            (channels, 3 * prog)).astype(np.float32)).to(dev)
+        zi = torch.from_numpy(rng.standard_normal(
+            (channels, ff.fused_state_len(ntaps))).astype(np.float32)).to(dev)
+        for mode in MODES:
+            one = ff.fused_fir_resample(x, *args, zi=zi, mode=mode)
+            for cut in (prog, 2 * prog):
+                za, zf = ff.fused_fir_resample(
+                    x[:, :cut].contiguous(), *args, zi=zi, return_zf=True,
+                    mode=mode)
+                zb = ff.fused_fir_resample(x[:, cut:].contiguous(), *args,
+                                           zi=zf, mode=mode)
+                torch.cuda.synchronize()
+                if not torch.equal(torch.cat([za, zb], -1), one):
+                    raise RuntimeError(
+                        f"fused_fir_resample {mode} {label}: streamed "
+                        f"{cut // prog} + {3 - cut // prog} programs != one "
+                        f"shot")
+            log(f"[kernel] fused_fir_resample {mode:7s} {label}: 3 programs "
+                f"of {prog} streamed 1 + 2 and 2 + 1 == one shot bitwise")
 
     # ---- the channelizer, its mesh and its data --------------------------
     chan = {m: Channelizer(fir_method=m, device=dev)
@@ -277,8 +341,13 @@ def main() -> int:
     for h in halo_widths:
         for carry in (None, torch.randn((CZ_CHANNELS, h), generator=gen,
                                         device=dev)):
+            before = hr.left_halo_ring_cuda.launches
             got = on_mesh(lambda: hr.left_halo_ring(
                 parts, h, mesh, first_shard_value=carry))()
+            if hr.left_halo_ring_cuda.launches != before + 1:
+                raise RuntimeError(
+                    f"halo_ring: {hr.left_halo_ring_cuda.launches - before} "
+                    f"launches for one exchange on one card, expected 1")
             plain = on_mesh(lambda: hr.left_halo_ring_plain(
                 parts, h, mesh, first_shard_value=carry))()
             hr.check_exchanges(mesh)
@@ -292,7 +361,7 @@ def main() -> int:
                     (got[r] - plain[r]).abs().max()))
             log(f"[kernel] halo_ring h={h:4d} carry={carry is not None}: "
                 f"{CZ_RANKS} ranks x ({CZ_CHANNELS}, {h}) == plain version "
-                f"bitwise")
+                f"bitwise, 1 launch")
 
     # ---- phase 2c: B4 against its plain version and against B2 ----------
     for n in (2, CZ_RANKS):
@@ -335,31 +404,56 @@ def main() -> int:
                 del whole, ref64, xpad, got, plain
     torch.cuda.empty_cache()
 
-    # ---- phase 2d: a receive whose sender is late must raise ------------
+    # ---- phase 2d: a late sender --------------------------------------
+    # B3 on one card waits for nothing but stream order: with rank 0's
+    # stream held back about a second the halo is still right
     late = DspMesh([dev] * 2, (TIME_AXIS,))
-    ring = on_mesh(lambda: hr.left_halo_ring(parts[:2], 64, late), late)
-    ring()
+    with late.on(0):
+        torch.cuda._sleep(int(2e9))
+    t0 = time.perf_counter()
+    got = on_mesh(lambda: hr.left_halo_ring(parts[:2], 63, late), late)()
+    hr.check_exchanges(late)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[1], parts[0][:, -63:])
+            and not bool(got[0].any())):
+        raise RuntimeError("halo_ring with rank 0's stream held back "
+                           "returned a wrong halo")
+    log(f"[kernel] halo_ring with rank 0's stream held back "
+        f"{time.perf_counter() - t0:.2f} s: halo right (stream order alone)")
+    # B4 does wait for its sender: a receive whose sender comes later than
+    # the limit must raise, and the exchange must work again afterwards
+    fused = on_mesh(lambda: hf.block2_fir_halo_fused(
+        parts_f[:2], cz_taps, late, mode="highest"), late)
+    fused()
     hr.check_exchanges(late)
     limit, hr.WAIT_LIMIT_S = hr.WAIT_LIMIT_S, 0.2
     t0 = time.perf_counter()
     with late.on(0):
         torch.cuda._sleep(int(2e9))  # about a second of rank 0's stream
-    ring()
+    fused()
     try:
         hr.check_exchanges(late)
     except RuntimeError as exc:
-        log(f"[kernel] halo_ring with its sender held back raised after "
-            f"{time.perf_counter() - t0:.2f} s: {exc}")
+        log(f"[kernel] halo_fir_fused with its sender held back raised "
+            f"after {time.perf_counter() - t0:.2f} s: {exc}")
     else:
         raise RuntimeError("a halo receive whose sender came late by more "
                            "than the wait limit did not raise")
     finally:
         hr.WAIT_LIMIT_S = limit
-    ring()
+    y = fused()
     hr.check_exchanges(late)  # and the exchange works again afterwards
+    whole = bf.block2_fir_cuda(
+        torch.cat([torch.zeros((CZ_FUSED_CHANNELS, cz_block), device=dev),
+                   x_cz[:CZ_FUSED_CHANNELS, :2 * t_loc]], -1), cz_taps,
+        cz_block, "highest")
+    if not torch.equal(torch.cat(y, -1), whole):
+        raise RuntimeError("halo_fir_fused after a timed-out receive: "
+                           "shards != block2_fir_cuda unsharded")
+    del y, whole
     # the same through the channelizer: the step after the one whose
     # receive timed out raises, with no check_exchanges by the caller
-    step = chan["block2"].sharded_step(late, halo="rdma")
+    step = chan["block2"].sharded_step(late, halo="rdma_fused")
     st = chan["block2"].init_state(CZ_FUSED_CHANNELS)
     step(parts_f[:2], st)
     hr.WAIT_LIMIT_S = 0.2
@@ -370,8 +464,8 @@ def main() -> int:
         try:
             step(parts_f[:2], st)
         except RuntimeError as exc:
-            log(f"[channelizer] the sharded step after one whose halo never "
-                f"arrived raised: {exc}")
+            log(f"[channelizer] the rdma_fused sharded step after one whose "
+                f"halo never arrived raised: {exc}")
         else:
             raise RuntimeError("a sharded step whose halo receive timed out "
                                "was not reported by the next step")
@@ -413,15 +507,16 @@ def main() -> int:
         log(f"[chain] fused {mode:7s}: {NBLOCKS} blocks of {CHANNELS}x"
             f"{BLOCK_T} -> {tuple(z.shape)}, streamed == one-shot bitwise, "
             f"min-channel SNR vs scipy f64 {snr:.1f} dB "
-            f"(floor {CHAIN_FLOOR_DB[mode]})")
+            f"(floor {CHAIN_FLOOR_DB[mode]}, was "
+            f"{PREVIOUS['fused chain SNR dB'][mode]})")
         if not snr >= CHAIN_FLOOR_DB[mode]:
             raise RuntimeError(f"fused chain {mode}: SNR {snr:.1f} dB")
     for mode in MODES:
-        os.environ["LLZ_MATMUL_PRECISION"] = mode
-        chain = Chain([FIRStage(taps, method="block2"),
-                       ResampleStage(UP, DOWN, taps=rtaps)])
-        z = torch.cat(list(chain.stream(blocks)), dim=-1)
-        torch.cuda.synchronize()
+        with matmul_precision(mode):
+            chain = Chain([FIRStage(taps, method="block2"),
+                           ResampleStage(UP, DOWN, taps=rtaps)])
+            z = torch.cat(list(chain.stream(blocks)), dim=-1)
+            torch.cuda.synchronize()
         z = z.cpu().numpy()
         snr = min_channel_snr_db(golden[:, :z.shape[1]], z)
         log(f"[chain] unfused {mode:7s}: FIRStage(block2) + ResampleStage -> "
@@ -429,7 +524,6 @@ def main() -> int:
             f"(floor {CHAIN_FLOOR_DB[mode]})")
         if not (np.isfinite(z).all() and snr >= CHAIN_FLOOR_DB[mode]):
             raise RuntimeError(f"unfused chain {mode}: SNR {snr:.1f} dB")
-    os.environ.pop("LLZ_MATMUL_PRECISION")
     read_launches(("block2_fir", "fused_fir_resample"), "chain")
     del streamed, one_shot, golden, y64
 
@@ -465,10 +559,12 @@ def main() -> int:
         hr.check_exchanges(mesh)
         return outs, st
 
-    def check_sharded(label, ch, x, shards, halos):
+    def check_sharded(label, ch, x, shards, halos, mode):
         """Two super-blocks through ``step`` and through ``sharded_step``
-        for each halo mode; the first halo mode is compared bitwise with
-        the others, and with unsharded streaming at the floor."""
+        for each halo mode, at precision ``mode`` (which the caller has
+        set); the first halo mode is compared bitwise with the others, and
+        with unsharded streaming at the floor."""
+        label = f"{label} {mode}"
         ref, st_ref = streaming(ch, x, 2)
         nf = ref[0].shape[1]
         if ref[0].shape != (x.shape[0], nf, ch.fft_n // 2 + 1) or not all(
@@ -505,22 +601,26 @@ def main() -> int:
         snr = min_channel_snr_db(cz_golden[:, :z.shape[1]], z)
         log(f"[channelizer] {label}: {CZ_GOLDEN_CHANNELS} channels vs scipy "
             f"f64, min-channel SNR {snr:.1f} dB (floor "
-            f"{CHAIN_FLOOR_DB['highest']})")
-        if not snr >= CHAIN_FLOOR_DB["highest"]:
+            f"{CHAIN_FLOOR_DB[mode]})")
+        if not snr >= CHAIN_FLOOR_DB[mode]:
             raise RuntimeError(f"{label}: SNR vs scipy {snr:.1f} dB")
 
-    reset_launches()
-    check_sharded(f"fused {CZ_CHANNELS}ch", chan["fused"], x_cz, parts,
-                  ("rdma", "ppermute"))
-    torch.cuda.empty_cache()
-    check_sharded(f"block2 {CZ_CHANNELS}ch", chan["block2"], x_cz, parts,
-                  ("rdma", "ppermute"))
-    torch.cuda.empty_cache()
-    check_sharded(f"block2 {CZ_FUSED_CHANNELS}ch", chan["block2"],
-                  x_cz[:CZ_FUSED_CHANNELS], parts_f,
-                  ("rdma_fused", "ppermute"))
-    torch.cuda.empty_cache()
-    launches = read_launches(KERNEL_NAMES, "channelizer")
+    for mode in MODES[::-1]:  # "highest" (the default), then "high"
+        reset_launches()
+        for label, ch, x, shards, halos in (
+                (f"fused {CZ_CHANNELS}ch", chan["fused"], x_cz, parts,
+                 ("rdma", "ppermute")),
+                (f"block2 {CZ_CHANNELS}ch", chan["block2"], x_cz, parts,
+                 ("rdma", "ppermute")),
+                (f"block2 {CZ_FUSED_CHANNELS}ch", chan["block2"],
+                 x_cz[:CZ_FUSED_CHANNELS], parts_f,
+                 ("rdma_fused", "ppermute"))):
+            with matmul_precision(mode):
+                check_sharded(label, ch, x, shards, halos, mode)
+            torch.cuda.empty_cache()
+        # the counts in the ``kernels`` line are those of the last pass
+        # ("high"): the same paths and launches as the "highest" pass
+        launches = read_launches(KERNEL_NAMES, f"channelizer {mode}")
 
     # ---- phase 5: times ---------------------------------------------------
     def timed(plain, kern, library=None, iters=20):
@@ -544,7 +644,7 @@ def main() -> int:
     hist = torch.zeros((CHANNELS, 2 * block), device=dev)
     xpad = torch.cat([hist[:, :block], x], dim=-1).contiguous()
     samples = CHANNELS * BLOCK_T
-    times, bounds = {}, {}
+    times, bounds, bounds_high = {}, {}, {}
     for mode in MODES:
         for name, kern, plain, library in (
             ("block2_fir",
@@ -561,33 +661,64 @@ def main() -> int:
             times[(name, mode)] = timed(
                 plain, kern, library if mode == "highest" else None)
             ms, pms, lms = times[(name, mode)]
+            was = (f" (was {PREVIOUS[name + ' ms'][mode]} ms)"
+                   if name + " ms" in PREVIOUS else "")
             log(f"[time] {name} {mode:7s} {CHANNELS}x{BLOCK_T}: kernel "
-                f"{ms:.3f} ms/step ({samples / ms / 1e3:.0f} Msamples/s), "
-                f"plain {pms:.3f} ms/step ({samples / pms / 1e3:.0f} "
-                f"Msamples/s), library {lms} ms on {smi}")
+                f"{ms:.3f} ms/step{was} ({samples / ms / 1e3:.0f} "
+                f"Msamples/s), plain {pms:.3f} ms/step "
+                f"({samples / pms / 1e3:.0f} Msamples/s), library {lms} ms "
+                f"on {smi}")
+    # bounds, from the function's own work: ntaps products per FIR sample
+    # and the K nonzero bank entries per resampled output.  "highest": fp32
+    # multiply-adds outside the tensor cores.  "high": the same products in
+    # three bf16 passes on the tensor cores.  (What the kernels compute on
+    # top, the 8-wide tile's 7 extra rows and B1's dense stage-2 chunks, is
+    # waste and not part of the bound.)
     n_out = samples * UP // DOWN
-    bounds["block2_fir"] = fir_bound_ms(
-        2.0 * NTAPS * samples, 4.0 * (xpad.numel() + samples))
+    by_b2 = 4.0 * (xpad.numel() + samples)
+    by_b1 = 4.0 * (samples + hist.numel() + n_out)
+    bounds["block2_fir"] = fir_bound_ms(2.0 * NTAPS * samples, by_b2)
     bounds["fused_fir_resample"] = fir_bound_ms(
-        2.0 * NTAPS * samples + 2.0 * K * n_out,
-        4.0 * (samples + hist.numel() + n_out))
+        2.0 * NTAPS * samples + 2.0 * K * n_out, by_b1)
+    bounds_high["block2_fir"] = fir_bound_ms(
+        3 * 2.0 * NTAPS * samples, by_b2, BF16_PEAK)
+    bounds_high["fused_fir_resample"] = fir_bound_ms(
+        3 * (2.0 * NTAPS * samples + 2.0 * K * n_out), by_b1, BF16_PEAK)
+    for name in ("block2_fir", "fused_fir_resample"):
+        log(f"[time] {name} bound: {bounds[name][0]:.3f} ms ({bounds[name][1]}"
+            f", fp32 at {FP32_PEAK / 1e12:.0f} TFLOP/s) at highest, "
+            f"{bounds_high[name][0]:.3f} ms ({bounds_high[name][1]}, three "
+            f"bf16 passes at {BF16_PEAK / 1e12:.0f} TFLOP/s) at high")
     del x_all, blocks, x, xpad
 
     # B3 at the fused chain's halo (1024 x 2048), B4 at 256 x 327 680
     h = chan["fused"].h_fir
     tails = [p[:, -h:] for p in parts[:-1]]
     recv = [torch.empty((CZ_CHANNELS, h), device=dev) for _ in tails]
+    def copy_tails():
+        for d, v in zip(recv, tails):
+            d.copy_(v)
+
+    # the library call under the same fork and join as the kernel, and bare
     times[("halo_ring", "highest")] = timed(
         on_mesh(lambda: hr.left_halo_ring_plain(parts, h, mesh)),
         on_mesh(lambda: hr.left_halo_ring(parts, h, mesh)),
-        lambda: [d.copy_(s) for d, s in zip(recv, tails)])
+        on_mesh(copy_tails))
+    copy_bare_ms = cuda_ms(copy_tails)
+    log(f"[time] halo_ring library call, Tensor.copy_ of the "
+        f"{len(tails)} tails: {times[('halo_ring', 'highest')][2]:.3f} ms "
+        f"under fork/join, {copy_bare_ms:.3f} ms bare (was 0.034 bare)")
     bounds["halo_ring"] = fir_bound_ms(
         0.0, 4.0 * CZ_CHANNELS * h * (2 * CZ_RANKS - 1))
     for what, fn in (("kernel", hr.left_halo_ring),
                      ("plain", hr.left_halo_ring_plain)):
         ms = host_ms(on_mesh(lambda: fn(parts, h, mesh)))
         log(f"[time] halo_ring {what}: the host takes {ms:.3f} ms to enqueue "
-            f"one exchange of {CZ_RANKS} ranks x ({CZ_CHANNELS}, {h})")
+            f"one exchange of {CZ_RANKS} ranks x ({CZ_CHANNELS}, {h}), fork "
+            f"and join included (the kernel's was "
+            f"{PREVIOUS['halo_ring host ms']} ms)")
+    ms = host_ms(on_mesh(lambda: None))
+    log(f"[time] fork and join alone: the host takes {ms:.3f} ms")
     for hh in halo_widths[:2]:
         ms = cuda_ms(on_mesh(lambda: hr.left_halo_ring(parts, hh, mesh)))
         log(f"[time] halo_ring {CZ_RANKS} ranks x ({CZ_CHANNELS}, {hh}): "
@@ -608,33 +739,43 @@ def main() -> int:
     cz_samples = CZ_FUSED_CHANNELS * CZ_RANKS * t_loc
     bounds["halo_fir_fused"] = fir_bound_ms(
         2.0 * len(cz_taps) * cz_samples, 4.0 * 2 * cz_samples)
+    bounds_high["halo_fir_fused"] = fir_bound_ms(
+        3 * 2.0 * len(cz_taps) * cz_samples, 4.0 * 2 * cz_samples, BF16_PEAK)
     for name in ("halo_ring", "halo_fir_fused"):
         for mode in MODES:
             if (name, mode) in times:
                 ms, pms, lms = times[(name, mode)]
+                was = (f" (was {PREVIOUS['halo_ring ms']} ms)"
+                       if name == "halo_ring" else "")
+                bound = (bounds_high if mode == "high" else bounds)[name]
                 log(f"[time] {name} {mode:7s} {CZ_RANKS} ranks: kernel "
-                    f"{ms:.3f} ms, plain {pms:.3f} ms, library {lms} ms, "
-                    f"bound {bounds[name][0]:.3f} ms ({bounds[name][1]}) "
-                    f"on {smi}")
+                    f"{ms:.3f} ms{was}, plain {pms:.3f} ms, library {lms} "
+                    f"ms, bound {bound[0]:.3f} ms ({bound[1]}) on {smi}")
     del padded, libs, halo_f, recv, tails
     torch.cuda.empty_cache()
 
     # one sharded step per halo mode
-    for label, ch, shards, halos in (
+    for label, ch, shards, halos, mode in (
             (f"fused {CZ_CHANNELS}ch", chan["fused"], parts,
-             ("rdma", "ppermute")),
+             ("rdma", "ppermute"), "highest"),
+            (f"fused {CZ_CHANNELS}ch", chan["fused"], parts,
+             ("rdma",), "high"),
             (f"block2 {CZ_CHANNELS}ch", chan["block2"], parts,
-             ("rdma", "ppermute")),
+             ("rdma", "ppermute"), "highest"),
             (f"block2 {CZ_FUSED_CHANNELS}ch", chan["block2"], parts_f,
-             ("rdma_fused", "rdma", "ppermute"))):
+             ("rdma_fused", "rdma", "ppermute"), "highest")):
         st = ch.init_state(shards[0].shape[0])
         for halo in halos:
-            step = ch.sharded_step(mesh, halo=halo)
-            ms = cuda_ms(lambda: step(shards, st), iters=5, warmup=1)
+            with matmul_precision(mode):
+                step = ch.sharded_step(mesh, halo=halo)
+                ms = cuda_ms(lambda: step(shards, st), iters=5, warmup=1)
             n_in = shards[0].shape[0] * CZ_RANKS * t_loc
-            log(f"[time] sharded_step {label} halo={halo}: {ms:.3f} ms per "
-                f"step of {shards[0].shape[0]}x{CZ_RANKS * t_loc} "
-                f"({n_in / ms / 1e3:.0f} Msamples/s) on {smi}")
+            was = (f" (was {PREVIOUS['fused sharded step ms']} ms)"
+                   if ch is chan["fused"] and mode == "highest" else "")
+            log(f"[time] sharded_step {label} {mode} halo={halo}: {ms:.3f} "
+                f"ms{was} per step of {shards[0].shape[0]}x"
+                f"{CZ_RANKS * t_loc} ({n_in / ms / 1e3:.0f} Msamples/s) on "
+                f"{smi}")
     hr.check_exchanges(mesh)
     log(f"[memory] peak device memory allocated in this run: "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
@@ -656,8 +797,12 @@ def main() -> int:
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
             "library_ms": lms,
         }
+        if name == "halo_ring":
+            entry["library_ms_bare"] = copy_bare_ms
         if (name, "high") in times:
-            entry["ms_high"], entry["plain_ms_high"] = times[(name, "high")][:2]
+            entry["ms_high"], entry["plain_ms_high"] = \
+                times[(name, "high")][:2]
+            entry["bound_ms_high"] = bounds_high[name][0]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
 // Halo exchange between time shards from inside a kernel: the protocol of
-// kernels B3 (halo_ring.cu) and B4 (halo_fir_fused.cu).
+// kernel B4 (halo_fir_fused.cu) on every edge and of kernel B3
+// (halo_ring.cu) on an edge between two cards (within a card B3 copies the
+// tails directly and needs none of this).
 //
 // A shard's kernel copies the last h samples of each of its rows into its
 // right neighbour's receive buffer, then publishes a rising epoch in the

@@ -4,78 +4,99 @@
 // (_ring_send_kernel, entry left_halo_ring): every time shard sends the last
 // h samples of its (c, t) block to its right neighbour by an async remote
 // copy with send/receive semaphores, and the caller puts the stream carry
-// (or zeros) in shard 0.  Here one launch per shard does both halves:
+// (or zeros) in shard 0.
 //
-//   send     its row tails go into the right neighbour's receive buffer,
-//            then the epoch goes into the neighbour's flag (halo_exchange.cuh;
-//            the last shard has no neighbour and sends nothing: the TPU
-//            kernel's wrap-around copy is masked out by its caller);
-//   receive  shard 0 copies the carry (or writes zeros) into `out` and waits
-//            for nothing; every other shard waits for the epoch in its own
-//            flag and copies its receive buffer into `out`.
+// What bounds it: the host, then bytes.  The copy itself is c*h floats per
+// shard, microseconds of HBM time (24 MB read and written at 1024 x 2048 on
+// four shards); one launch per shard, each on its own stream with its own
+// events, cost the host ten times that.  So the design is one launch per
+// card and exchange: blockIdx.y is the shard within the card, and a table of
+// the card's shards rides in the kernel's arguments (no upload).
 //
-// What bounds it: bytes.  c*h floats are read and written twice (tail ->
-// buffer -> out), 16 MB at 1024 x 2048, microseconds of HBM time; at
-// h = 63 the launch and the flag round trip are all there is.  The copy is
-// spread over a few blocks only, so that the receivers of every shard of a
-// mesh stay resident together with the senders they wait for.
+//   same-card edge   shard r reads the row tails of shard r-1 straight from
+//                    its x (or the carry, or writes zeros) into `out`.  No
+//                    receive buffer, no flag, no counter, nothing to wait
+//                    for: stream order alone makes x ready.
+//   cross-card edge  the protocol of halo_exchange.cuh: the card's last shard
+//                    sends its tails into the next card's receive buffer and
+//                    publishes the epoch; the card's first shard waits for
+//                    the epoch in its own flag and copies its buffer out.
+//                    UNVERIFIED: this branch has never run, for want of a
+//                    machine with two cards; kernel B4 runs the same
+//                    protocol between shards of one card.
 //
-// The send precedes the wait in every block, so shards launched in rank
-// order on one card cannot wait for a sender that is queued behind them.
+// The send precedes the wait in every block, so a card that holds a single
+// shard (whose blocks do both) cannot wait for a sender queued behind it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "halo_exchange.cuh"
 
+// How one shard gets its halo.  src: h floats per row, rows src_stride
+// apart (the left neighbour's tails, the carry, or this shard's receive
+// buffer); null: zeros.  flag: non-null on a cross-card edge, where the
+// copy waits for the epoch; err: this shard's error word.
+struct HaloRank {
+  const float* src;
+  long long src_stride;
+  float* out;  // (c, h) contiguous
+  const int* flag;
+  int* err;
+};
+
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_BLOCKS = 16;
+constexpr int MAX_BLOCKS = 64;  // per shard
+constexpr int MAX_RANKS = 16;   // shards of one launch (HALO_MAX_RANKS)
+
+struct HaloTable {
+  HaloRank r[MAX_RANKS];
+};
 
 __global__ void __launch_bounds__(THREADS)
-halo_ring_kernel(const float* x, long long stride, int t, int c, int h,
-                 float* nbr_buf, int* nbr_flag, const float* my_buf,
-                 const int* my_flag, const float* carry, float* out,
-                 int* counter, int* err, int epoch, long long limit_ns) {
+halo_ring_kernel(HaloTable tab, int c, int h, const float* send_x,
+                 long long send_stride, int send_t, float* nbr_buf,
+                 int* nbr_flag, int* counter, int epoch, long long limit_ns) {
   const int part = blockIdx.x, nparts = gridDim.x;
-  if (nbr_buf != nullptr)
-    halo_send(x, stride, t, c, h, nbr_buf, nbr_flag, counter, epoch, part,
-              nparts);
-  if (my_buf != nullptr) {
-    halo_wait(my_flag, epoch, limit_ns, err);
+  if (nbr_buf != nullptr && blockIdx.y == gridDim.y - 1)
+    halo_send(send_x, send_stride, send_t, c, h, nbr_buf, nbr_flag, counter,
+              epoch, part, nparts);
+  const HaloRank me = tab.r[blockIdx.y];
+  if (me.flag != nullptr) halo_wait(me.flag, epoch, limit_ns, me.err);
+  if (me.src != nullptr) {
     for (int row = part; row < c; row += nparts)
-      halo_copy_row(out + (size_t)row * h, my_buf + (size_t)row * h, h,
-                    threadIdx.x, THREADS);
-  } else if (carry != nullptr) {
-    for (int row = part; row < c; row += nparts)
-      halo_copy_row(out + (size_t)row * h, carry + (size_t)row * h, h,
-                    threadIdx.x, THREADS);
+      halo_copy_row(me.out + (size_t)row * h,
+                    me.src + (size_t)row * me.src_stride, h, threadIdx.x,
+                    THREADS);
   } else {
     for (int row = part; row < c; row += nparts)
       for (int i = threadIdx.x; i < h; i += THREADS)
-        out[(size_t)row * h + i] = 0.f;
+        me.out[(size_t)row * h + i] = 0.f;
   }
 }
 
 }  // namespace
 
-// x: the shard's (c, t) f32 block, rows `stride` floats apart.  nbr_buf /
-// nbr_flag: the right neighbour's (c, h) receive buffer and flag, null on
-// the last shard.  my_buf / my_flag: this shard's own, null on shard 0, which
-// takes `carry` ((c, h) contiguous, or null for zeros) instead.  out: (c, h).
-// counter: one zeroed int of this shard; err: this shard's error word.
-// Returns cudaGetLastError() after the launch.
-extern "C" int halo_ring_launch(const float* x, long long stride, int t, int c,
-                                int h, float* nbr_buf, int* nbr_flag,
-                                const float* my_buf, const int* my_flag,
-                                const float* carry, float* out, int* counter,
-                                int* err, int epoch, long long limit_ns,
+// One launch for n (<= 16) consecutive shards of one card.  ranks: n
+// HaloRank entries in host memory.  send_x / send_stride / send_t: the (c,
+// send_t) block of the launch's last shard, sent to nbr_buf / nbr_flag (the
+// next card's (c, h) receive buffer and flag) with `counter` (one zeroed int
+// of that shard); nbr_buf null: nothing is sent.  Returns cudaGetLastError()
+// after the launch, cudaErrorInvalidValue for n outside 1 .. 16.
+extern "C" int halo_ring_launch(const HaloRank* ranks, int n, int c, int h,
+                                const float* send_x, long long send_stride,
+                                int send_t, float* nbr_buf, int* nbr_flag,
+                                int* counter, int epoch, long long limit_ns,
                                 void* stream) {
-  if (c <= 0 || h <= 0) return (int)cudaSuccess;
-  const int blocks = c < MAX_BLOCKS ? c : MAX_BLOCKS;
-  halo_ring_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      x, stride, t, c, h, nbr_buf, nbr_flag, my_buf, my_flag, carry, out,
-      counter, err, epoch, limit_ns);
+  if (c <= 0 || h <= 0 || n == 0) return (int)cudaSuccess;
+  if (n < 0 || n > MAX_RANKS) return (int)cudaErrorInvalidValue;
+  HaloTable tab = {};
+  for (int i = 0; i < n; ++i) tab.r[i] = ranks[i];
+  const dim3 grid(c < MAX_BLOCKS ? c : MAX_BLOCKS, n);
+  halo_ring_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      tab, c, h, send_x, send_stride, send_t, nbr_buf, nbr_flag, counter,
+      epoch, limit_ns);
   return (int)cudaGetLastError();
 }

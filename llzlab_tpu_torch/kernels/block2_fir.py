@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from llzlab_tpu_torch.kernels import _build
 
 __all__ = ["supports", "band_k", "bf16_hi_lo", "tap_tables", "plain_tables",
+           "mma_rows", "toeplitz_tile",
            "block2_fir", "block2_fir_cuda", "block2_fir_plain"]
 
 MODES = ("high", "highest")
@@ -73,6 +74,31 @@ def band_k(ntaps: int, block: int) -> int:
     """Rows of W that one 128-column output tile touches, aligned to 128
     (the JAX kernel's contraction band; 1152 at 1024 taps / 1024 block)."""
     return block + 128 - 128 * ((block - ntaps + 1) // 128)
+
+
+def mma_rows(ntaps: int, n: int = 8) -> int:
+    """Rows ``kt`` of the tensor-core FIR's Toeplitz tile
+    (``fir_mma_kt`` in csrc/fir_mma.cuh): ``ntaps + n − 1`` rounded up to
+    the 16-row chunk of one ``mma.sync``."""
+    return -(-(ntaps + n - 1) // 16) * 16
+
+
+def toeplitz_tile(taps: np.ndarray, n: int = 8) -> np.ndarray:
+    """``(kt, n)`` Toeplitz of the taps, ``W[k, c] = taps[c − k + kt − n]``
+    (0 outside the taps): ``_w_matrix`` at width ``n`` instead of
+    ``block``, with the zero rows cut to ``kt = mma_rows(ntaps, n)``.  The
+    tensor-core FIR builds the same tile in shared memory from the tap
+    tables (``fir_mma_stage_w`` in csrc/fir_mma.cuh); with
+    ``X[m, k] = xw[n·m + k]``, ``(X @ W)[m, c]`` is the FIR output at
+    window index ``n·m + c`` and ``xw[i]`` the sample ``kt − n`` before
+    it."""
+    taps = np.asarray(taps)
+    kt = mma_rows(len(taps), n)
+    j = np.arange(n)[None, :] - np.arange(kt)[:, None] + kt - n
+    sel = (j >= 0) & (j < len(taps))
+    w = np.zeros((kt, n), taps.dtype)
+    w[sel] = taps[j[sel]]
+    return w
 
 
 def bf16_hi_lo(w64: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:

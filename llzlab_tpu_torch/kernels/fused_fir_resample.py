@@ -18,6 +18,11 @@ recompute both the FIR history and the resampler's ``K−1``-sample lookback.
   product ``slab (B, S, down+K−1) @ Rᵀ``, with the bf16 hi/lo split
   emulated for ``"high"``.
 
+On the card "highest" runs on fp32 FMA and "high" on the tensor cores
+(``mma.sync`` bf16x3, ``csrc/fir_mma.cuh``); every CUDA block's window
+starts at a multiple of 8 of the stream index (:func:`_window_origin`), so
+that calls which cut the stream differently give the same bits.
+
 Shape envelope, program length and state length are the JAX package's
 (``fused_supports``, ``fused_program_in``, ``fused_state_len``), so a port
 chain streams on the same block grid with same-shaped state.  The TPU's
@@ -36,8 +41,8 @@ import torch
 
 from llzlab_tpu_torch.kernels import _build
 from llzlab_tpu_torch.kernels.block2_fir import (MODES, _bf16_split,
-                                                 _mode_tables,
-                                                 block2_fir_plain,
+                                                 _mode_tables, bf16_hi_lo,
+                                                 block2_fir_plain, mma_rows,
                                                  tap_tables)
 from llzlab_tpu_torch.ops.fir import block2_block
 from llzlab_tpu_torch.ops.resample import (_phase_layout, polyphase_weights,
@@ -52,12 +57,17 @@ __all__ = [
     "fused_program_in",
     "fused_state_len",
     "bank_tables",
+    "mma_bank_tables",
     "kernel_tables",
     "kernel_fits",
 ]
 
-#: FIR outputs per stage-1 pass of a CUDA block (512 threads × 4)
-_STEP = 2048
+#: FIR outputs per stage-1 pass of a CUDA block ("high": 8 warps × 4
+#: m-tiles × 128; "highest": two rounds of 512 threads × 4)
+_STEP = 4096
+#: a block's y window starts at a multiple of this many samples of the
+#: absolute stream index (the tensor-core tile width, csrc/fir_mma.cuh)
+_ALIGN = 8
 #: dynamic shared memory one block may use on sm_90 (227 KB)
 _SMEM_MAX = 232448
 
@@ -99,29 +109,56 @@ def fused_supports(channels: int, ntaps: int, up: int, down: int,
 
 
 def _run_groups(down: int, k: int) -> int:
-    """Output groups per CUDA block: as many as fill two stage-1 passes
-    (``groups·down + K − 1 ≤ 2·_STEP``, 25 at the headline), or the fewest
-    whole passes that hold one group."""
-    passes = 2
-    while (passes * _STEP - (k - 1)) // down < 1:
+    """Output groups per CUDA block: as many as fill one stage-1 pass
+    (``groups·down + K − 1 + 7 ≤ _STEP``, the 7 for a window origin rounded
+    down to a multiple of 8; 25 at the headline), or the fewest whole
+    passes that hold one group."""
+    passes = 1
+    while (passes * _STEP - (_ALIGN - 1) - (k - 1)) // down < 1:
         passes += 1
-    return (passes * _STEP - (k - 1)) // down
+    return (passes * _STEP - (_ALIGN - 1) - (k - 1)) // down
+
+
+def _window_origin(s0: int, down: int, k: int) -> int:
+    """Stream index of the first y sample of the block whose first output
+    group is ``s0``: ``s0·down − (K−1)`` rounded down to a multiple of 8
+    (mirrors ``window_origin`` in the .cu)."""
+    return (s0 * down - (k - 1)) // _ALIGN * _ALIGN
+
+
+def _geometry(ntaps: int, down: int, k: int, mode: str):
+    """``(rows of taps, x window, y window)`` of one CUDA block in samples
+    (mirrors ``geometry`` in the .cu)."""
+    ly = _run_groups(down, k) * down + k - 1 + (_ALIGN - 1)
+    lyp = -(-ly // _STEP) * _STEP
+    if mode == "high":
+        kt = mma_rows(ntaps)
+        return kt, lyp + kt - _ALIGN, lyp
+    ntp = -(-ntaps // 32) * 32
+    return ntp, lyp + ntp, lyp
 
 
 def _smem_bytes(ntaps: int, down: int, k: int, mode: str) -> int:
-    """Shared memory of one CUDA block (mirrors ``geometry`` in the .cu):
-    the FIR taps, the x window and the y window, twice in "high"."""
-    ntp = -(-ntaps // 32) * 32
-    ly = _run_groups(down, k) * down + k - 1
-    lx = -(-ly // _STEP) * _STEP + ntp
-    return 4 * (ntp + lx + ly) * (2 if mode == "high" else 1)
+    """Shared memory of one CUDA block (mirrors ``geometry`` in the .cu).
+    "highest": the taps, the x window and the y window in f32.  "high", in
+    bf16 hi and lo each: the taps' (8, kt + 8) Toeplitz tiles and the x
+    window, or where that is more the 32 rows of ``down + K − 1`` (rounded
+    up to 16, and 8 of padding) of stage 2's slab that take their place;
+    then the y window."""
+    rows, lx, lyp = _geometry(ntaps, down, k, mode)
+    if mode == "high":
+        k2 = -(-(down + k - 1) // 16) * 16
+        scratch = max(2 * _ALIGN * (rows + 8) + 2 * lx, 2 * 32 * (k2 + 8))
+        return 2 * (scratch + 2 * lyp)
+    return 4 * (rows + lx + lyp)
 
 
 def kernel_fits(ntaps: int, down: int, k: int) -> bool:
     """Whether one CUDA block's working set fits the 227 KB of shared
-    memory (82 KB in "high" at the headline; a ``down`` of many thousand
-    samples makes the y window too long)."""
-    return _smem_bytes(ntaps, down, k, "high") <= _SMEM_MAX
+    memory in both modes (69 KB in "high" at the headline, three blocks on
+    an SM; a ``down`` of
+    many thousand samples makes the y window too long)."""
+    return max(_smem_bytes(ntaps, down, k, m) for m in MODES) <= _SMEM_MAX
 
 
 @functools.lru_cache(maxsize=16)
@@ -143,18 +180,53 @@ def bank_tables(rtaps, up: int, down: int, mode: str = "high", device="cpu",
                 dtype=torch.float32, dense: bool = False):
     """Resample bank: ``(f32,)`` for "highest" or ``(hi, lo)`` for "high",
     in ``dtype``.  ``dense``: the ``(down+K−1, up)`` transposed polyphase
-    matrix (plain version); else the ``(K, up)`` nonzero bank (kernel)."""
+    matrix (plain version); else the ``(K, up)`` nonzero bank (the kernel
+    at "highest"; at "high" it reads :func:`mma_bank_tables`)."""
     return _bank_cached(np.asarray(rtaps, np.float64).tobytes(), up, down,
                         mode, str(device), dtype, dense)
 
 
+def _mma_fragments(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """``(N, K)`` bf16 hi and lo (``N % 8 == 0``, ``K % 16 == 0``) in the
+    order ``mma.sync.m16n8k16`` holds its B operand: ``(N/8, K/16, 32, 4,
+    2)``, where lane ``l`` of n-tile ``nt`` and chunk ``ks`` has row
+    ``n = 8·nt + l // 4`` at columns ``k = 16·ks + 2·(l % 4) + {0, 1}`` of
+    hi, the same + 8 of hi, then both of lo."""
+    def frag(w):  # (nt, n, ks, half, kq, pair) → (nt, ks, n, kq, half, pair)
+        n, k = w.shape
+        return (w.reshape(n // 8, 8, k // 16, 2, 4, 2)
+                .permute(0, 2, 1, 4, 3, 5).reshape(n // 8, k // 16, 32, 2, 2))
+    return torch.cat([frag(hi), frag(lo)], dim=3).contiguous()
+
+
+@functools.lru_cache(maxsize=16)
+def _mma_bank_cached(r_bytes: bytes, up: int, down: int, device: str):
+    w = polyphase_weights(np.frombuffer(r_bytes, np.float64), up, down)
+    pad = np.zeros((-(-up // 8) * 8, -(-w.shape[1] // 16) * 16), np.float64)
+    pad[:up, :w.shape[1]] = w
+    return _mma_fragments(*bf16_hi_lo(pad)).to(device)
+
+
+def mma_bank_tables(rtaps, up: int, down: int, device="cpu"):
+    """The dense polyphase matrix ``R (up, down+K−1)`` as the tensor-core
+    stage 2 of kernel B1 reads it: the bf16 hi and lo parts of
+    ``bank_tables(dense=True)``, zero-padded to ``(up rounded up to 8,
+    down+K−1 rounded up to 16)``, in fragment order
+    (:func:`_mma_fragments`), one tensor."""
+    return _mma_bank_cached(np.asarray(rtaps, np.float64).tobytes(), up,
+                            down, str(device))
+
+
 def kernel_tables(fir_taps, rtaps, up: int, down: int, mode: str,
                   device="cpu"):
-    """What kernel B1 reads: FIR taps then the ``(K, up)`` bank, each
-    ``(f32,)`` for "highest" or bf16 ``(hi, lo)`` for "high"."""
-    dtype = torch.float32 if mode == "highest" else torch.bfloat16
+    """What kernel B1 reads: FIR taps then the bank.  "highest":
+    ``(taps f32, bank (K, up) f32)``.  "high": ``(taps_hi, taps_lo,
+    bank)``, bf16, the bank dense (:func:`mma_bank_tables`)."""
+    if mode == "highest":
+        return (tap_tables(fir_taps, mode, device)
+                + bank_tables(rtaps, up, down, mode, device))
     return (tap_tables(fir_taps, mode, device)
-            + bank_tables(rtaps, up, down, mode, device, dtype))
+            + (mma_bank_tables(rtaps, up, down, device),))
 
 
 def fused_fir_resample_plain(x: torch.Tensor, hist: torch.Tensor, fir_taps,
@@ -218,7 +290,8 @@ def fused_fir_resample_cuda(x: torch.Tensor, hist: torch.Tensor, fir_taps,
             f"ntaps={ntaps}, K={k}, T={t})")
     if not kernel_fits(ntaps, down, k):
         raise ValueError(
-            f"fused kernel: {_smem_bytes(ntaps, down, k, 'high')} B of "
+            f"fused kernel: "
+            f"{max(_smem_bytes(ntaps, down, k, m) for m in MODES)} B of "
             f"shared memory per block exceeds {_SMEM_MAX} (down={down})")
     lib = _build.load("fused_fir_resample", _declare)
     with torch.cuda.device(x.device):
@@ -229,8 +302,7 @@ def fused_fir_resample_cuda(x: torch.Tensor, hist: torch.Tensor, fir_taps,
         rc = lib.fused_fir_resample_launch(
             x.data_ptr(), hist.data_ptr(), tabs[0].data_ptr(),
             tabs[1].data_ptr() if high else None,
-            tabs[2 if high else 1].data_ptr(),
-            tabs[3].data_ptr() if high else None, z.data_ptr(),
+            tabs[2 if high else 1].data_ptr(), None, z.data_ptr(),
             b, t, hl, ntaps, up, down, k, _run_groups(down, k), int(high),
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_fir_resample")

@@ -8,22 +8,30 @@ last ``h`` samples of rank ``r − 1``'s ``(C, T)`` tensor; rank 0 receives
 ``first_shard_value`` (the stream carry) or zeros.
 
 * :func:`left_halo_ring` is the entry: a CUDA mesh launches the kernel,
-  once per rank in rank order on the rank's stream
-  (:func:`left_halo_ring_cuda`, which counts its launches in
+  once per card (:func:`left_halo_ring_cuda`, which counts its launches in
   ``.launches``); a CPU mesh runs the plain version.  Nothing falls back.
 * :func:`left_halo_ring_plain` is the plain PyTorch version:
   ``parallel.halo.left_halo``, copies ordered by stream events.
 
-The kernel of rank ``r − 1`` writes its tail into rank ``r``'s receive
-buffer and publishes a rising epoch in rank ``r``'s flag; the kernel of
-rank ``r`` waits for the epoch and copies the buffer out
-(``csrc/halo_exchange.cuh``).  :class:`HaloExchange` owns that state, one
-per ``(mesh, C, h)``, allocated once and kept in ``mesh.cache``: one
-receive buffer per rank, and a stream event that keeps the send of call
-``e + 1`` behind the receiver's launch of call ``e``, so that it never lands
-on a halo that is still being read.  A receiver whose sender never comes gives up after
-``WAIT_LIMIT_S`` and sets an error word in pinned host memory;
-:meth:`HaloExchange.check` raises on it.
+One exchange is host-bound (the copy is microseconds of device time), so
+the wrapper does as little as it can per call: it groups the mesh's ranks
+by card (:func:`ranks_by_card`) and launches once per card, on the stream
+of the card's first rank, with one ``torch.empty`` for the card's halos.
+Between ranks of one card the kernel copies the left neighbour's row tails
+straight into the halo: no receive buffer, no flag, no wait; stream events
+alone order it.  Between cards it runs the protocol of
+``csrc/halo_exchange.cuh``: the kernel of the left card writes its last
+rank's tails into the right card's receive buffer and publishes a rising
+epoch in its flag; the kernel of the right card waits for the epoch and
+copies the buffer out.  :class:`HaloExchange` owns that state, one per
+``(mesh, C, h)``, kept in ``mesh.cache`` and shared with kernel B4 (which
+runs the protocol on every edge): receive buffers and flags, made when an
+edge first needs them, and a stream event that keeps the send of call
+``e + 1`` behind the receiver's launch of call ``e``, so that it never
+lands on a halo that is still being read.  A receiver whose sender never
+comes gives up after ``WAIT_LIMIT_S`` and sets an error word in pinned host
+memory; :meth:`HaloExchange.check` raises on it.  The cross-card branch of
+B3 is unverified: it has never run, for want of a machine with two cards.
 """
 
 from __future__ import annotations
@@ -38,12 +46,52 @@ from llzlab_tpu_torch.parallel.halo import left_halo
 from llzlab_tpu_torch.parallel.mesh import TIME_AXIS, DspMesh
 
 __all__ = ["left_halo_ring", "left_halo_ring_cuda", "left_halo_ring_plain",
-           "HaloExchange", "check_exchanges", "WAIT_LIMIT_S"]
+           "HaloExchange", "check_exchanges", "ranks_by_card",
+           "same_card_edges", "WAIT_LIMIT_S"]
 
 #: how long a receiving kernel waits for its sender before it gives up
 WAIT_LIMIT_S = 4.0
+#: the most ranks one card may hold: one launch of kernel B3 serves them all
+#: (MAX_RANKS in csrc/halo_ring.cu)
+HALO_MAX_RANKS = 16
 
 left_halo_ring_plain = left_halo
+
+
+def ranks_by_card(devices: Sequence[torch.device]) -> List[List[int]]:
+    """Group the ranks of a 1-D time mesh by card: one list of consecutive
+    rank indices per device, in rank order; kernel B3 launches once per
+    group.  A device that comes back after another one raises: time
+    neighbours must share a card in one run, as ``make_dsp_mesh`` deals them
+    out.  So does a card with more than ``HALO_MAX_RANKS`` ranks."""
+    groups: List[List[int]] = []
+    seen = []
+    for r, dev in enumerate(devices):
+        dev = torch.device(dev)
+        if groups and dev == seen[-1]:
+            groups[-1].append(r)
+        elif dev in seen:
+            raise ValueError(
+                f"rank {r} is on {dev}, which an earlier run of ranks "
+                f"already left: the ranks of one card must be consecutive "
+                f"(got {[str(d) for d in devices]})")
+        else:
+            seen.append(dev)
+            groups.append([r])
+    for dev, group in zip(seen, groups):
+        if len(group) > HALO_MAX_RANKS:
+            raise ValueError(f"{len(group)} ranks on {dev}: one launch of "
+                             f"the halo kernel serves at most "
+                             f"{HALO_MAX_RANKS} ranks of a card")
+    return groups
+
+
+def same_card_edges(devices: Sequence[torch.device]) -> List[bool]:
+    """For each edge ``r − 1 → r`` (``r = 1 … n − 1``), whether both ranks
+    share a card: kernel B3 copies directly there, and runs the send / wait
+    protocol on the other edges."""
+    devs = [torch.device(d) for d in devices]
+    return [devs[r - 1] == devs[r] for r in range(1, len(devs))]
 
 
 class HaloExchange:
@@ -56,23 +104,12 @@ class HaloExchange:
         self.epoch = 0
         self.bufs: List[Optional[torch.Tensor]] = [None] * n
         self.flags: List[Optional[torch.Tensor]] = [None] * n
-        self.counters: List[torch.Tensor] = []
-        for r, rank in enumerate(mesh.ranks):
-            if r:
-                self.bufs[r] = torch.empty((c, h), dtype=torch.float32,
-                                           device=rank.device)
-                self.flags[r] = torch.zeros(1, dtype=torch.int32,
-                                            device=rank.device)
-            self.counters.append(torch.zeros(1, dtype=torch.int32,
-                                             device=rank.device))
-            if r and rank.device != mesh.ranks[r - 1].device:
-                _enable_peer_access(mesh.ranks[r - 1].device, rank.device)
+        self.counters: List[Optional[torch.Tensor]] = [None] * n
         # one word per rank, written by a kernel that gave up waiting
         self.err = torch.zeros(n, dtype=torch.int32).pin_memory()
+        self._err_np = self.err.numpy()  # the same memory, cheaper to read
         # per rank: the event of its last launch on this exchange
         self._done: List[Optional[torch.cuda.Event]] = [None] * n
-        for rank in mesh.ranks:  # the zeroed flags exist before any kernel
-            torch.cuda.synchronize(rank.device)
 
     @classmethod
     def of(cls, mesh: DspMesh, c: int, h: int) -> "HaloExchange":
@@ -81,13 +118,34 @@ class HaloExchange:
             mesh.cache[key] = cls(mesh, c, h)
         return mesh.cache[key]
 
+    def edge(self, r: int):
+        """State of the protocol edge ``r − 1 → r``, made at first use:
+        ``(buffer, flag)`` of rank ``r`` and the counter of rank ``r − 1``,
+        as pointers."""
+        if self.bufs[r] is None:
+            src, dst = (self.mesh.ranks[q].device for q in (r - 1, r))
+            if src != dst:
+                _enable_peer_access(src, dst)
+            self.bufs[r] = torch.empty((self.c, self.h), dtype=torch.float32,
+                                       device=dst)
+            self.flags[r] = torch.zeros(1, dtype=torch.int32, device=dst)
+            self.counters[r - 1] = torch.zeros(1, dtype=torch.int32,
+                                               device=src)
+            for dev in {src, dst}:  # the zeroed words exist before a kernel
+                torch.cuda.synchronize(dev)
+        return (self.bufs[r].data_ptr(), self.flags[r].data_ptr(),
+                self.counters[r - 1].data_ptr())
+
+    def err_ptr(self, r: int) -> int:
+        return self.err.data_ptr() + 4 * r
+
     def check(self) -> None:
         """Raise if a receive of this exchange timed out.  The word is host
         memory: this waits for nothing and sees what finished kernels have
         reported (:func:`check_exchanges` drains the streams first)."""
-        if bool(self.err.any()):
-            bad = {r: int(e) for r, e in enumerate(self.err.tolist()) if e}
-            self.err.zero_()
+        if self._err_np.any():
+            bad = {r: int(e) for r, e in enumerate(self._err_np) if e}
+            self._err_np[:] = 0
             raise RuntimeError(
                 f"halo exchange (C={self.c}, h={self.h}): the receive of "
                 f"rank(s) {sorted(bad)} never arrived within "
@@ -99,26 +157,32 @@ class HaloExchange:
         self.epoch += 1
         return self.epoch
 
-    def launch_args(self, r: int):
-        """Pointers of rank ``r``'s launch: ``(nbr_buf,
-        nbr_flag, my_buf, my_flag, counter, err)``, None where the rank
-        has no such side.  Also orders the launch behind the neighbour's
-        read of the buffer it is about to overwrite."""
-        nbr = r + 1 < len(self.mesh)
-        if nbr and self._done[r + 1] is not None:
-            self.mesh.ranks[r].stream.wait_event(self._done[r + 1])
-        return (
-            self.bufs[r + 1].data_ptr() if nbr else None,
-            self.flags[r + 1].data_ptr() if nbr else None,
-            self.bufs[r].data_ptr() if r else None,
-            self.flags[r].data_ptr() if r else None,
-            self.counters[r].data_ptr(),
-            self.err.data_ptr() + 4 * r,
-        )
+    def before_send(self, r: int, stream: torch.cuda.Stream) -> None:
+        """Order ``stream``'s send into rank ``r + 1``'s buffer behind that
+        rank's read of what the buffer holds now."""
+        if self._done[r + 1] is not None:
+            stream.wait_event(self._done[r + 1])
 
-    def launched(self, r: int) -> None:
-        """Record that rank ``r``'s launch of the current epoch is queued."""
-        self._done[r] = self.mesh.ranks[r].stream.record_event()
+    def launch_args(self, r: int):
+        """Pointers of a launch that runs the protocol on both sides of
+        rank ``r`` (kernel B4): ``(nbr_buf, nbr_flag, my_buf, my_flag,
+        counter, err)``, None where the rank has no such side.  Also orders
+        the launch behind the neighbour's read of the buffer it is about to
+        overwrite."""
+        nbr_buf = nbr_flag = my_buf = my_flag = counter = None
+        if r + 1 < len(self.mesh):
+            nbr_buf, nbr_flag, counter = self.edge(r + 1)
+            self.before_send(r, self.mesh.ranks[r].stream)
+        if r:
+            my_buf, my_flag, _ = self.edge(r)
+        return nbr_buf, nbr_flag, my_buf, my_flag, counter, self.err_ptr(r)
+
+    def launched(self, r: int, event: Optional[torch.cuda.Event] = None
+                 ) -> None:
+        """Record that rank ``r``'s launch of the current epoch is queued
+        (``event``: one already recorded behind it)."""
+        self._done[r] = (self.mesh.ranks[r].stream.record_event()
+                         if event is None else event)
 
 
 def _enable_peer_access(a: torch.device, b: torch.device) -> None:
@@ -159,19 +223,28 @@ def check_time_mesh(mesh: DspMesh, parts: Sequence[torch.Tensor]) -> None:
         raise ValueError(f"{len(parts)} shards for {len(mesh)} ranks")
 
 
+class _HaloRank(ctypes.Structure):
+    """``HaloRank`` of csrc/halo_ring.cu: how one rank gets its halo."""
+    _fields_ = [("src", ctypes.c_void_p), ("src_stride", ctypes.c_longlong),
+                ("out", ctypes.c_void_p), ("flag", ctypes.c_void_p),
+                ("err", ctypes.c_void_p)]
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.halo_ring_launch.argtypes = [p, ll, i, i, i, p, p, p, p, p, p, p, p,
-                                     i, ll, p]
+    lib.halo_ring_launch.argtypes = [p, i, i, i, p, ll, i, p, p, p, i, ll, p]
     lib.halo_ring_launch.restype = i
 
 
 def left_halo_ring_cuda(parts: Sequence[torch.Tensor], h: int, mesh: DspMesh,
                         *, first_shard_value: Optional[torch.Tensor] = None
                         ) -> List[torch.Tensor]:
-    """Launch kernel B3 once per rank, in rank order, each on its rank's
-    stream.  ``parts[r]``: ``(C, T)`` f32 on rank ``r``'s device, unit
-    stride along time (rows may be strided)."""
+    """Launch kernel B3 once per card, on the stream of the card's first
+    rank; the stream of every other rank of the card is ordered before and
+    behind the launch by one event.  ``parts[r]``: ``(C, T)`` f32 on rank
+    ``r``'s device, unit stride along time (rows may be strided).  Returns
+    one ``(C, h)`` halo per rank, slices of one tensor per card whose memory
+    is held until every rank's stream is done with it (``record_stream``)."""
     check_time_mesh(mesh, parts)
     c, t = parts[0].shape if parts[0].dim() == 2 else (0, 0)
     for r, part in enumerate(parts):
@@ -193,30 +266,65 @@ def left_halo_ring_cuda(parts: Sequence[torch.Tensor], h: int, mesh: DspMesh,
     if c == 0 or h == 0:  # nothing to exchange, nothing launched
         return [torch.empty((c, h), dtype=torch.float32, device=rank.device)
                 for rank in mesh.ranks]
+    if "halo_ring_layout" not in mesh.cache:
+        devices = [rank.device for rank in mesh.ranks]
+        mesh.cache["halo_ring_layout"] = (ranks_by_card(devices),
+                                          same_card_edges(devices))
+    cards, same_card = mesh.cache["halo_ring_layout"]
     lib = _build.load("halo_ring", _declare)
     ex = HaloExchange.of(mesh, c, h)
     epoch = ex.begin()
-    out = []
-    for r, part in enumerate(parts):
-        with mesh.on(r) as rank:
-            nbr_buf, nbr_flag, my_buf, my_flag, counter, err = \
-                ex.launch_args(r)
-            recv = torch.empty((c, h), dtype=torch.float32,
-                               device=rank.device)
-            carry = None
-            if r == 0 and first_shard_value is not None:
-                carry = first_shard_value.to(
-                    device=rank.device, dtype=torch.float32).contiguous()
+    ranks, n = mesh.ranks, len(mesh)
+    out: List[torch.Tensor] = []
+    for run in cards:
+        first, last = run[0], run[-1]
+        dev, stream = ranks[first].device, ranks[first].stream
+        others = run[1:]  # whose tensors the launch reads and writes too
+        send = last + 1 < n  # the next rank is on another card
+        # the card's device and its first rank's stream, entered once
+        with torch.cuda.stream(stream):
+            halos = torch.empty((len(run), c, h), dtype=torch.float32,
+                                device=dev)
+            table = (_HaloRank * len(run))()
+            out0 = halos.data_ptr()
+            for i, r in enumerate(run):
+                entry = table[i]
+                entry.out = out0 + 4 * c * h * i
+                if r == 0:
+                    if first_shard_value is not None:
+                        carry = first_shard_value.to(
+                            device=dev, dtype=torch.float32).contiguous()
+                        entry.src, entry.src_stride = carry.data_ptr(), h
+                elif same_card[r - 1]:  # the left neighbour's tails
+                    entry.src = parts[r - 1].data_ptr() + 4 * (t - h)
+                    entry.src_stride = parts[r - 1].stride(0)
+                else:  # another card's: through the receive buffer
+                    entry.src, entry.flag, _ = ex.edge(r)
+                    entry.src_stride, entry.err = h, ex.err_ptr(r)
+            nbr_buf = nbr_flag = counter = None
+            if send:
+                nbr_buf, nbr_flag, counter = ex.edge(last + 1)
+                ex.before_send(last, stream)
+            for r in others:
+                stream.wait_event(ranks[r].mark())
             rc = lib.halo_ring_launch(
-                part.data_ptr(), part.stride(0), t, c, h, nbr_buf, nbr_flag,
-                my_buf, my_flag,
-                None if carry is None else carry.data_ptr(),
-                recv.data_ptr(), counter, err, epoch,
-                int(WAIT_LIMIT_S * 1e9), rank.stream.cuda_stream)
+                table, len(run), c, h,
+                parts[last].data_ptr() if send else None,
+                parts[last].stride(0), t, nbr_buf, nbr_flag, counter, epoch,
+                int(WAIT_LIMIT_S * 1e9), stream.cuda_stream)
             _build.check(rc, "halo_ring")
-            ex.launched(r)
-        left_halo_ring_cuda.launches += 1
-        out.append(recv)
+            left_halo_ring_cuda.launches += 1
+            if table[0].flag:  # the next send into this buffer waits for
+                done = stream.record_event()  # this: an event that is kept
+                ex.launched(first, done)
+            else:
+                done = ranks[first].mark()
+        for r in others:
+            ranks[r].stream.wait_event(done)
+            # the halos were allocated under the first rank's stream: keep
+            # their memory from reuse there while rank r may still read it
+            halos.record_stream(ranks[r].stream)
+        out.extend(halos.unbind(0))
     return out
 
 

@@ -38,14 +38,24 @@ TIME_AXIS = "time"
 
 
 class Rank:
-    """One mesh position: its device and, on CUDA, its stream."""
+    """One mesh position: its device and, on CUDA, its stream and one
+    event that :meth:`mark` records anew each time (creating an event per
+    call costs the host more than recording one)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        self.stream = (torch.cuda.Stream(self.device)
-                       if self.device.type == "cuda" else None)
+        on_cuda = self.device.type == "cuda"
+        self.stream = torch.cuda.Stream(self.device) if on_cuda else None
+        self._event = torch.cuda.Event() if on_cuda else None
+
+    def mark(self):
+        """The rank's event, recorded behind what its stream has been
+        given so far.  Wait for it at once: the next ``mark`` moves it
+        (a wait already queued keeps the point it was given)."""
+        self._event.record(self.stream)
+        return self._event
 
 
 class DspMesh:
@@ -70,6 +80,12 @@ class DspMesh:
         self.ranks: List[Rank] = [Rank(d) for d in devices]
         self.shape: Dict[str, int] = dict(zip(self.axis_names, dims))
         self.cache: dict = {}
+        # per CUDA device: its ranks, and the event fork() records
+        self._cards: Dict[torch.device, List[Rank]] = {}
+        for rank in self.ranks:
+            if rank.stream is not None:
+                self._cards.setdefault(rank.device, []).append(rank)
+        self._fork_events = {dev: torch.cuda.Event() for dev in self._cards}
 
     def __len__(self) -> int:
         return len(self.ranks)
@@ -99,23 +115,24 @@ class DspMesh:
             return
         for o in others:
             if o != r:
-                rank.stream.wait_event(self.ranks[o].stream.record_event())
+                rank.stream.wait_event(self.ranks[o].mark())
 
     def fork(self) -> None:
         """Order every rank's later work after the caller's current
         stream on that rank's device."""
-        for rank in self.ranks:
-            if rank.stream is not None:
-                rank.stream.wait_stream(
-                    torch.cuda.current_stream(rank.device))
+        for dev, ranks in self._cards.items():
+            event = self._fork_events[dev]
+            event.record(torch.cuda.current_stream(dev))
+            for rank in ranks:
+                rank.stream.wait_event(event)
 
     def join(self) -> None:
         """Order the caller's current stream (on each rank's device) after
         what every rank has been given so far."""
-        for rank in self.ranks:
-            if rank.stream is not None:
-                torch.cuda.current_stream(rank.device).wait_stream(
-                    rank.stream)
+        for dev, ranks in self._cards.items():
+            current = torch.cuda.current_stream(dev)
+            for rank in ranks:
+                current.wait_event(rank.mark())
 
     def synchronize(self) -> None:
         """Block the host until every rank's stream has drained."""

@@ -58,6 +58,66 @@ def test_kernels_match_plain_versions(mode):
     assert _snr_db(ref, z) >= FLOOR_DB[mode]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["high", "highest"])
+def test_fused_kernel_streamed_equals_one_shot_bitwise(mode):
+    """Three programs as one call, as 1 + 2 and as 2 + 1: the calls' block
+    grids differ, the outputs must not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    rng = np.random.default_rng(44)
+    args = (firwin(NTAPS, 0.2), UP, DOWN, resample_taps(UP, DOWN, K))
+    p = ff.fused_program_in(NTAPS, UP, DOWN)
+    x = torch.from_numpy(
+        rng.standard_normal((8, 3 * p)).astype(np.float32)).cuda()
+    zi = torch.from_numpy(rng.standard_normal(
+        (8, ff.fused_state_len(NTAPS))).astype(np.float32)).cuda()
+    one = ff.fused_fir_resample(x, *args, zi=zi, mode=mode)
+    for cut in (p, 2 * p):
+        za, zf = ff.fused_fir_resample(x[:, :cut].contiguous(), *args, zi=zi,
+                                       return_zf=True, mode=mode)
+        zb = ff.fused_fir_resample(x[:, cut:].contiguous(), *args, zi=zf,
+                                   mode=mode)
+        assert torch.equal(torch.cat([za, zb], -1), one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["high", "highest"])
+@pytest.mark.parametrize("ntaps,up,down,k", [
+    (256, 4, 3, 8),     # upsampling, odd down
+    (513, 2, 3, 16),    # odd ntaps, odd down
+    (129, 3, 4, 100),   # long phases: K − 1 near the block
+    (64, 5, 7, 12),     # short filter, odd ratio
+    (129, 1, 2, 32),    # one phase
+    (2000, 3, 4, 8),    # the longest block
+    (129, 7, 50, 16),   # down not a multiple of 4 nor of 8, few groups
+])
+def test_fused_kernel_over_the_envelope(ntaps, up, down, k, mode):
+    """Kernel B1 against its plain version in f64 and, streamed in two
+    calls, against itself, at shapes that reach every branch of its
+    geometry (group stride, padded phases and taps, several slab runs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    rng = np.random.default_rng(45)
+    args = (firwin(ntaps, 0.2), up, down, resample_taps(up, down, k))
+    p = ff.fused_program_in(ntaps, up, down)
+    assert ff.fused_supports(8, ntaps, up, down, k, 2 * p)
+    x = torch.from_numpy(
+        rng.standard_normal((8, 2 * p)).astype(np.float32)).cuda()
+    zi = torch.from_numpy(rng.standard_normal(
+        (8, ff.fused_state_len(ntaps))).astype(np.float32)).cuda()
+    z = ff.fused_fir_resample(x, *args, zi=zi, mode=mode)
+    ref = ff.fused_fir_resample_plain(x.double(), zi.double(), *args,
+                                      "highest")
+    assert z.shape == ref.shape and bool(torch.isfinite(z).all())
+    assert _snr_db(ref, z) >= FLOOR_DB[mode]
+    za, zf = ff.fused_fir_resample(x[:, :p].contiguous(), *args, zi=zi,
+                                   return_zf=True, mode=mode)
+    zb = ff.fused_fir_resample(x[:, p:].contiguous(), *args, zi=zf,
+                               mode=mode)
+    assert torch.equal(torch.cat([za, zb], -1), z)
+
+
 def _time_mesh(n):
     from llzlab_tpu_torch.parallel.mesh import TIME_AXIS, DspMesh
 
@@ -82,11 +142,12 @@ def test_halo_ring_kernel_matches_plain_version(h, with_carry):
     carry = (torch.from_numpy(rng.standard_normal((24, h)).astype(np.float32))
              .cuda() if with_carry else None)
     n = hr.left_halo_ring_cuda.launches
-    for _ in range(3):  # three epochs: the receive buffer is reused twice
+    for _ in range(3):
         mesh.fork()
         got = hr.left_halo_ring(parts, h, mesh, first_shard_value=carry)
         mesh.join()
-    assert hr.left_halo_ring_cuda.launches == n + 12
+    # one launch per exchange: the four ranks share the card
+    assert hr.left_halo_ring_cuda.launches == n + 3
     hr.check_exchanges(mesh)
     plain = hr.left_halo_ring_plain(parts, h, mesh, first_shard_value=carry)
     torch.cuda.synchronize()
@@ -147,6 +208,54 @@ def test_empty_halo_launches_no_kernel():
 
 
 @pytest.mark.cuda
+def test_halo_ring_with_a_rank_held_back_is_right_by_stream_order():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from llzlab_tpu_torch.kernels import halo_ring as hr
+
+    mesh = _time_mesh(2)
+    parts = [torch.randn((8, 256), device="cuda") for _ in range(2)]
+    want = parts[0][:, -63:] + 1.0
+    torch.cuda.synchronize()
+    with mesh.on(0):
+        torch.cuda._sleep(int(1e9))  # rank 0's stream is about 0.5 s late
+        parts[0].add_(1.0)           # and only then writes its shard
+    mesh.fork()
+    got = hr.left_halo_ring(parts, 63, mesh)
+    mesh.join()
+    hr.check_exchanges(mesh)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want) and not got[0].any()
+
+
+@pytest.mark.cuda
+def test_halo_of_a_late_rank_is_not_reused_by_the_first_ranks_stream():
+    """The halos of a card are one allocation under its first rank's stream.
+    Dropped while rank 1 still has to read its slice, the memory must not go
+    to new work on rank 0's stream.  No ``fork`` / ``join`` around the call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from llzlab_tpu_torch.kernels import halo_ring as hr
+
+    mesh = _time_mesh(2)
+    parts = [torch.randn((64, 4096), device="cuda") for _ in range(2)]
+    want = parts[0][:, -1024:].clone()
+    torch.cuda.synchronize()
+    got = hr.left_halo_ring(parts, 1024, mesh)
+    first, size = got[0].data_ptr(), 2 * got[0].numel()
+    with mesh.on(1):
+        torch.cuda._sleep(int(1e9))  # rank 1 reads its halo about 0.5 s late
+        kept = got[1].clone()
+    del got
+    with mesh.on(0):  # the same size, so the allocator's first candidate
+        junk = torch.full((size,), float("nan"), device="cuda")
+    assert junk.data_ptr() != first
+    torch.cuda.synchronize()
+    hr.check_exchanges(mesh)
+    assert torch.equal(kept, want)
+
+
+@pytest.mark.cuda
 def test_sharded_step_after_a_timed_out_receive_raises(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
@@ -159,7 +268,8 @@ def test_sharded_step_after_a_timed_out_receive_raises(monkeypatch):
     mesh = _time_mesh(2)
     x = torch.randn((8, 2 * chan.block_multiple()), device="cuda")
     parts = shard_time(x, mesh)
-    step = chan.sharded_step(mesh, halo="rdma")
+    # kernel B4 waits for its sender; B3 on one card waits for nothing
+    step = chan.sharded_step(mesh, halo="rdma_fused")
     st = chan.init_state(8)
     step(parts, st)
     monkeypatch.setattr(hr, "WAIT_LIMIT_S", 0.1)
