@@ -10,8 +10,9 @@ checks them:
    FIR→resample) and B2 (block2 FIR) at a small shape, at the headline
    shape and at the shapes one rank of the channelizer gives them (1024 and
    256 channels of 327 680 samples, the 0.4 taps), in both precision modes;
-   B1 streamed as 1 + 2 and 2 + 1 programs bitwise equal to one shot (the
-   block grids differ); B3 (halo ring) bitwise at the channelizer's halo
+   B1 streamed as 1 + 2 and 2 + 1 programs, and B2 as 1 + 2 and 2 + 1
+   stretches of blocks, bitwise equal to one shot (the block grids
+   differ); B3 (halo ring) bitwise at the channelizer's halo
    widths on a 4-rank time mesh, one launch per exchange, also with a
    rank's stream held back; B4 (halo-fused FIR) against its plain version
    and bitwise against B2 on the unsharded stream, over three epochs; a
@@ -21,7 +22,7 @@ checks them:
    with 64 taps per phase, 245 760 samples per block):
    ``Chain([FusedFirResampleStage])`` streams through B1 (bit-exact
    against one shot, SNR against a scipy float64 golden), then the unfused
-   chain through B2;
+   chain through B2, each timed over 20 blocks back to back;
 4. the channelizer at full width (``configs/channelizer_1024ch.json``: 1024
    channels, 1024-tap 0.4 FIR, 147/160, 2048-point frames) on a 4-rank time
    mesh of 327 680 samples per rank: ``step`` (B1), ``sharded_step`` with
@@ -34,7 +35,8 @@ checks them:
 5. CUDA-event times of each kernel, its plain version and one library call
    for the same function, beside the least time the card could take and
    the time the previous version of the kernel took, and of one sharded
-   step per halo mode.
+   step per FIR method, halo mode and precision mode; the blocks of B2 and
+   B4 that one SM holds, from the occupancy API.
 
 Every phase raises on failure.  The last line of stdout is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -64,14 +66,21 @@ SHARDED_FLOOR_DB = 140.0
 #: the card's published peaks: fp32 outside the tensor cores, bf16 on them,
 #: HBM3
 FP32_PEAK, BF16_PEAK, HBM_RATE = 67e12, 989e12, 3.35e12
-#: what the previous versions of B1 and B3 read in this script on an H100
-#: 80GB HBM3 at 700 W (PERF.md), printed beside the new readings
+#: what the previous versions of the kernels read in this script on an H100
+#: 80GB HBM3 at 700 W (PERF.md), printed beside the new readings: B1 and B3
+#: before their second design, B2 and B4 before "high" moved to the tensor
+#: cores
 PREVIOUS = {
     "fused_fir_resample ms": {"highest": 1.301, "high": 2.771},
     "fused_fir_resample SNR dB": {"highest": 134.1, "high": 104.2},
     "fused chain SNR dB": {"highest": 134.0, "high": 104.7},
-    "halo_ring ms": 0.231, "halo_ring host ms": 0.289,
+    "halo_ring ms": {"highest": 0.231}, "halo_ring host ms": 0.289,
     "fused sharded step ms": 109.2,
+    "block2_fir ms": {"highest": 0.900, "high": 1.977},
+    "block2_fir SNR dB": {"highest": 136.7, "high": 106.2},
+    "halo_fir_fused ms": {"highest": 19.012, "high": 43.727},
+    # the chain before this change, timed as phase 3 times it
+    "unfused chain ms": {"highest": 1.385, "high": 2.463},
 }
 KERNEL_NAMES = ("block2_fir", "fused_fir_resample", "halo_ring",
                 "halo_fir_fused")
@@ -214,9 +223,15 @@ def main() -> int:
     log(f"[build] {', '.join(n + '.cu' for n in KERNEL_NAMES)} for sm_90a "
         f"in {time.perf_counter() - t0:.2f} s")
 
+    log(f"[build] blocks an SM holds at {NTAPS} taps (occupancy API): "
+        f"block2_fir high {bf.blocks_per_sm(NTAPS)}; halo_fir_fused high "
+        f"{hf.blocks_per_sm(NTAPS, 'high')}, highest "
+        f"{hf.blocks_per_sm(NTAPS, 'highest')}")
+
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev).manual_seed(0)
     errors = dict.fromkeys(KERNEL_NAMES, 0.0)
+    chain_times = {}
 
     # ---- phase 2a: B1 and B2 against their plain versions --------------
     def check_kernels(label, ntaps, cutoff, up, down, k, channels, t):
@@ -299,6 +314,34 @@ def main() -> int:
                         f"shot")
             log(f"[kernel] fused_fir_resample {mode:7s} {label}: 3 programs "
                 f"of {prog} streamed 1 + 2 and 2 + 1 == one shot bitwise")
+
+    # B2 over three stretches of five blocks, each call with the block before
+    # it as history: one shot, 1 + 2 and 2 + 1.  The cuts are multiples of
+    # the block, so of 8: the tensor-core passes of the later call start
+    # elsewhere in the stream, their sums must not
+    for label, ntaps, cutoff, channels in (
+            ("small", s["ntaps"], s["cutoff"], s["channels"]),
+            ("headline", NTAPS, CUTOFF, CHANNELS)):
+        taps = firwin(ntaps, cutoff, window="hamming")
+        block = block2_block(ntaps)
+        part = 5 * block
+        xpad = torch.from_numpy(rng.standard_normal(
+            (channels, block + 3 * part)).astype(np.float32)).to(dev)
+        for mode in MODES:
+            one = bf.block2_fir_cuda(xpad, taps, block, mode)
+            for cut in (part, 2 * part):
+                ya = bf.block2_fir_cuda(xpad[:, :block + cut].contiguous(),
+                                        taps, block, mode)
+                yb = bf.block2_fir_cuda(xpad[:, cut:].contiguous(), taps,
+                                        block, mode)
+                torch.cuda.synchronize()
+                if not torch.equal(torch.cat([ya, yb], -1), one):
+                    raise RuntimeError(
+                        f"block2_fir {mode} {label}: streamed "
+                        f"{cut // part} + {3 - cut // part} stretches != one "
+                        f"shot")
+            log(f"[kernel] block2_fir {mode:7s} {label}: 3 stretches of "
+                f"{part} streamed 1 + 2 and 2 + 1 == one shot bitwise")
 
     # ---- the channelizer, its mesh and its data --------------------------
     chan = {m: Channelizer(fir_method=m, device=dev)
@@ -489,6 +532,21 @@ def main() -> int:
     blocks = [x_all[:, i * BLOCK_T:(i + 1) * BLOCK_T].contiguous()
               for i in range(NBLOCKS)]
 
+    def chain_ms(chain, steps=20):
+        """CUDA-event time per block of ``steps`` blocks streamed back to
+        back through ``chain``, the state carried."""
+        st = chain.init_state((CHANNELS,), device=dev)
+        for i in range(3):
+            _, st = chain.apply(blocks[i % NBLOCKS], st)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for i in range(steps):
+            _, st = chain.apply(blocks[i % NBLOCKS], st)
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / steps
+
     reset_launches()
     for mode in MODES:
         chain = Chain([FusedFirResampleStage(
@@ -511,12 +569,14 @@ def main() -> int:
             f"{PREVIOUS['fused chain SNR dB'][mode]})")
         if not snr >= CHAIN_FLOOR_DB[mode]:
             raise RuntimeError(f"fused chain {mode}: SNR {snr:.1f} dB")
+        chain_times[("fused", mode)] = chain_ms(chain)
     for mode in MODES:
         with matmul_precision(mode):
             chain = Chain([FIRStage(taps, method="block2"),
                            ResampleStage(UP, DOWN, taps=rtaps)])
             z = torch.cat(list(chain.stream(blocks)), dim=-1)
             torch.cuda.synchronize()
+            chain_times[("unfused", mode)] = chain_ms(chain)
         z = z.cpu().numpy()
         snr = min_channel_snr_db(golden[:, :z.shape[1]], z)
         log(f"[chain] unfused {mode:7s}: FIRStage(block2) + ResampleStage -> "
@@ -525,6 +585,12 @@ def main() -> int:
         if not (np.isfinite(z).all() and snr >= CHAIN_FLOOR_DB[mode]):
             raise RuntimeError(f"unfused chain {mode}: SNR {snr:.1f} dB")
     read_launches(("block2_fir", "fused_fir_resample"), "chain")
+    for (what, mode), ms in chain_times.items():
+        was = (f" (was {PREVIOUS['unfused chain ms'][mode]} ms)"
+               if what == "unfused" else "")
+        log(f"[time] chain {what} {mode:7s}: {ms:.3f} ms per block of "
+            f"{CHANNELS}x{BLOCK_T}{was}, 20 blocks back to back "
+            f"({CHANNELS * BLOCK_T / ms / 1e3:.0f} Msamples/s) on {smi}")
     del streamed, one_shot, golden, y64
 
     # ---- phase 4: the channelizer at full width --------------------------
@@ -745,8 +811,7 @@ def main() -> int:
         for mode in MODES:
             if (name, mode) in times:
                 ms, pms, lms = times[(name, mode)]
-                was = (f" (was {PREVIOUS['halo_ring ms']} ms)"
-                       if name == "halo_ring" else "")
+                was = f" (was {PREVIOUS[name + ' ms'][mode]} ms)"
                 bound = (bounds_high if mode == "high" else bounds)[name]
                 log(f"[time] {name} {mode:7s} {CZ_RANKS} ranks: kernel "
                     f"{ms:.3f} ms{was}, plain {pms:.3f} ms, library {lms} "
@@ -763,7 +828,11 @@ def main() -> int:
             (f"block2 {CZ_CHANNELS}ch", chan["block2"], parts,
              ("rdma", "ppermute"), "highest"),
             (f"block2 {CZ_FUSED_CHANNELS}ch", chan["block2"], parts_f,
-             ("rdma_fused", "rdma", "ppermute"), "highest")):
+             ("rdma_fused", "rdma", "ppermute"), "highest"),
+            (f"block2 {CZ_CHANNELS}ch", chan["block2"], parts,
+             ("rdma", "ppermute"), "high"),
+            (f"block2 {CZ_FUSED_CHANNELS}ch", chan["block2"], parts_f,
+             ("rdma_fused", "rdma", "ppermute"), "high")):
         st = ch.init_state(shards[0].shape[0])
         for halo in halos:
             with matmul_precision(mode):

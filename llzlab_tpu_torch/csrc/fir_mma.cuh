@@ -1,7 +1,8 @@
 // Direct-form FIR in "high" precision (bf16x3) on the tensor cores: the FIR
 // as a matrix product that mma.sync takes as it is.  Stage 1 of kernel B1
-// (fused_fir_resample.cu); free of B1's geometry, so that kernels B2 and B4
-// can move onto it.
+// (fused_fir_resample.cu) and, through the block run at the end of this
+// file, the whole of kernels B2 (block2_fir.cu) and B4 (halo_fir_fused.cu)
+// at "high".
 //
 // The product.  With tile width N = FIR_MMA_N = 8,
 //
@@ -166,5 +167,82 @@ __device__ __forceinline__ void fir_mma_tiles(
     for (int t = 0; t < MT; ++t)
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[t][r] += part[t][r];
+  }
+}
+
+// ---- a block's run (kernels B2 and B4) -------------------------------------
+// A CUDA block of FIR_MMA_WARPS warps keeps W for its whole life and
+// computes runs of FIR_MMA_WARPS * MT m-tiles, each from its own x window:
+// the window is staged with guarded loads (fir_mma_stage_window), the warps
+// compute their tiles (fir_mma_tiles) and write them to y (fir_mma_run).
+// Shared memory: W hi, W lo, window hi, window lo, all bf16.
+
+constexpr int FIR_MMA_WARPS = 8;
+constexpr int FIR_MMA_THREADS = 32 * FIR_MMA_WARPS;
+
+// Outputs of one run.
+__host__ __device__ constexpr int fir_mma_run_len(int mt) {
+  return FIR_MMA_WARPS * mt * FIR_MMA_TILE;
+}
+
+// Samples of a run's x window: its first output reads kt - 8 samples back.
+__host__ __device__ constexpr int fir_mma_window_len(int run, int kt) {
+  return run + kt - FIR_MMA_N;
+}
+
+// Bytes of a block's shared memory for runs of `run` outputs.
+__host__ __device__ __forceinline__ size_t fir_mma_smem_bytes(int run,
+                                                              int kt) {
+  return sizeof(__nv_bfloat16) *
+         (2 * (size_t)FIR_MMA_N * fir_mma_w_stride(kt) +
+          2 * (size_t)fir_mma_window_len(run, kt));
+}
+
+// The window of a run whose first output is stream index n0 (a multiple of
+// 8 of the absolute stream index): xw[m] = sample(n0 - (kt - 8) + m), split
+// into bf16 hi/lo.  sample(j) returns the sample at stream index j and 0
+// where the stream holds none: every element of the window is written, so
+// that a zero row of W never meets a NaN left in shared memory.
+template <typename Sample>
+__device__ __forceinline__ void fir_mma_stage_window(__nv_bfloat16* xh,
+                                                     __nv_bfloat16* xl,
+                                                     int run, int kt, int n0,
+                                                     Sample sample) {
+  const int lx = fir_mma_window_len(run, kt);
+  const int j0 = n0 - (kt - FIR_MMA_N);
+  for (int m = threadIdx.x; m < lx; m += FIR_MMA_THREADS)
+    fir_mma_split(sample(j0 + m), &xh[m], &xl[m]);
+}
+
+// One run: warp w computes m-tiles w * MT .. w * MT + MT - 1 of the window
+// and writes outputs n0 .. n0 + run - 1 of the row yr (t outputs long) where
+// they lie below t.  A lane's fragment is pairs of consecutive outputs:
+// float2 stores, 64 contiguous floats a half-tile and warp, where the row
+// is 8-byte aligned.  A warp whose tiles all lie beyond t computes nothing.
+// Every thread of the block must call it, between two __syncthreads().
+template <int MT>
+__device__ __forceinline__ void fir_mma_run(
+    const __nv_bfloat16* xh, const __nv_bfloat16* xl, const __nv_bfloat16* wh,
+    const __nv_bfloat16* wl, int kt, float* __restrict__ yr, int n0, int t) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tile0 = warp * MT;
+  if (n0 + FIR_MMA_TILE * tile0 >= t) return;
+  float acc[MT][4];
+  fir_mma_tiles<MT>(xh, xl, wh, wl, kt, tile0, acc);
+  const bool pairs = (reinterpret_cast<uintptr_t>(yr) & 7u) == 0;
+#pragma unroll
+  for (int q = 0; q < MT; ++q) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int n = n0 + FIR_MMA_TILE * (tile0 + q) + 64 * half +
+                    8 * (lane >> 2) + 2 * (lane & 3);
+      const float a = acc[q][2 * half], b = acc[q][2 * half + 1];
+      if (pairs && n + 1 < t) {
+        *reinterpret_cast<float2*>(yr + n) = make_float2(a, b);
+      } else {
+        if (n < t) yr[n] = a;
+        if (n + 1 < t) yr[n + 1] = b;
+      }
+    }
   }
 }

@@ -310,7 +310,7 @@ fused_highest_kernel(const float* __restrict__ x,
   for (int base = 0; base < lyp; base += THREADS * 4) {
     const int i0 = base + 4 * tid;
     float acc[4];
-    fir_out4<false>(xw, nullptr, th, nullptr, ntp, i0, acc);
+    fir_out4(xw, th, ntp, i0, acc);
     *reinterpret_cast<float4*>(yw + i0) =
         make_float4(acc[0], acc[1], acc[2], acc[3]);
   }

@@ -15,9 +15,21 @@ prepended → ``y (B, T)``, ``y[n] = Σ_k h[k]·xpad[block + n − k]``,
 
 Precision modes (as in the JAX package):
 
-* ``"highest"``: f32 products and sums.
+* ``"highest"``: f32 products and sums, on the CUDA cores
+  (``csrc/fir_tile.cuh``); bound by their fp32 FMA rate.
 * ``"high"``: explicit bf16x3: operands split into bf16 hi/lo, products
-  ``S_hi·W_hi + S_lo·W_hi + S_hi·W_lo`` with f32 accumulation.
+  ``S_hi·W_hi + S_lo·W_hi + S_hi·W_lo`` with f32 accumulation, on the
+  tensor cores (``mma.sync`` through ``csrc/fir_mma.cuh``), at about a
+  quarter of their bf16 rate (``csrc/block2_fir.cu`` says what was tried).
+  A CUDA block keeps the taps' Toeplitz tile resident and walks passes of 4096
+  outputs over all rows (:func:`mma_plan` mirrors the launch arithmetic).
+
+Streaming contract on the card: a stream cut into calls, each with the
+block before it as history, gives bitwise the one-shot output if every
+cut lies at a multiple of 8 samples at ``"high"`` (the tensor-core sum
+order depends on the output index mod 8 counted from output 0 of a call)
+and anywhere at ``"highest"``.  Every caller that promises bit-exactness
+cuts at multiples of ``block`` (a multiple of 128).
 
 The bf16 tables are rounded from f64 through f32 with round-to-nearest-
 even, as the JAX package rounds them, so they are bit-equal.  The kernel
@@ -29,7 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +50,7 @@ import torch.nn.functional as F
 from llzlab_tpu_torch.kernels import _build
 
 __all__ = ["supports", "band_k", "bf16_hi_lo", "tap_tables", "plain_tables",
-           "mma_rows", "toeplitz_tile",
+           "mma_rows", "toeplitz_tile", "mma_plan", "SMEM_MAX",
            "block2_fir", "block2_fir_cuda", "block2_fir_plain"]
 
 MODES = ("high", "highest")
@@ -99,6 +111,45 @@ def toeplitz_tile(taps: np.ndarray, n: int = 8) -> np.ndarray:
     w = np.zeros((kt, n), taps.dtype)
     w[sel] = taps[j[sel]]
     return w
+
+
+#: shared memory a block may use on sm_90 (227 KB)
+SMEM_MAX = 232448
+#: outputs of one pass of the "high" kernel: 8 warps × 4 m-tiles × 128
+MMA_PASS = 4096
+
+
+def mma_smem_bytes(ntaps: int, run: int = MMA_PASS) -> int:
+    """Shared memory of a block that runs the tensor-core FIR in runs of
+    ``run`` outputs (``fir_mma_smem_bytes`` in csrc/fir_mma.cuh): W hi and
+    lo, ``(8, kt + 8)`` bf16 each, and the x window hi and lo,
+    ``run + kt − 8`` bf16 each."""
+    kt = mma_rows(ntaps)
+    return 2 * (2 * 8 * (kt + 8) + 2 * (run + kt - 8))
+
+
+def mma_plan(ntaps: int, t: int, batch: int = 1,
+             resident: Optional[int] = None) -> dict:
+    """The launch arithmetic of kernel B2 at "high"
+    (``block2_fir_launch`` in csrc/block2_fir.cu): ``kt`` rows of W, the
+    x window and shared memory of a block, ``passes`` of ``run`` outputs a
+    row, ``units = batch · passes`` (row, pass) pairs, and the grid: one
+    block per unit up to the ``resident`` blocks the card holds at once
+    (``None``: unbounded); block ``i`` walks units ``i, i + grid, …``."""
+    kt = mma_rows(ntaps)
+    passes = -(-t // MMA_PASS)
+    units = batch * passes
+    grid = units if resident is None else min(units, resident)
+    return dict(kt=kt, run=MMA_PASS, window=MMA_PASS + kt - 8,
+                smem_bytes=mma_smem_bytes(ntaps), passes=passes,
+                units=units, grid=grid)
+
+
+def mma_units(plan: dict, block_index: int):
+    """``(row, first output)`` of the units that CUDA block ``block_index``
+    of ``plan`` walks, in order."""
+    return [(q // plan["passes"], (q % plan["passes"]) * plan["run"])
+            for q in range(block_index, plan["units"], plan["grid"])]
 
 
 def bf16_hi_lo(w64: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -185,11 +236,24 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.block2_fir_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.block2_fir_launch.restype = i
+    lib.block2_fir_blocks_per_sm.argtypes = [i]
+    lib.block2_fir_blocks_per_sm.restype = i
+
+
+def blocks_per_sm(ntaps: int) -> int:
+    """Blocks of the "high" kernel that one SM of the current card holds
+    (read from the CUDA occupancy API)."""
+    per_sm = _build.load("block2_fir", _declare).block2_fir_blocks_per_sm(
+        ntaps)
+    _build.check(-min(per_sm, 0), "block2_fir_blocks_per_sm")
+    return per_sm
 
 
 def block2_fir_cuda(xpad: torch.Tensor, taps, block: int,
                     mode: str = "high") -> torch.Tensor:
-    """Launch kernel B2 on ``torch.cuda.current_stream()``."""
+    """Launch kernel B2 on ``torch.cuda.current_stream()``.  Streamed calls
+    equal one shot bitwise for cuts at multiples of 8 samples ("high") or
+    anywhere ("highest"); see the module docstring."""
     taps = np.asarray(taps, np.float64)
     ntaps = len(taps)
     if not xpad.is_cuda:
@@ -228,7 +292,10 @@ block2_fir_cuda.launches = 0
 def block2_fir(xpad: torch.Tensor, taps, block: int, *,
                mode: str = "high") -> torch.Tensor:
     """Block2 FIR on ``(B, block + T)`` pre-padded input → ``(B, T)``:
-    kernel B2 for a CUDA tensor, the plain version for a CPU tensor."""
+    kernel B2 for a CUDA tensor, the plain version for a CPU tensor.  On
+    the card, streamed calls equal one shot bitwise for cuts at multiples
+    of 8 samples at "high" (so at every multiple of ``block``), anywhere at
+    "highest"."""
     if xpad.is_cuda:
         return block2_fir_cuda(xpad, taps, block, mode)
     if xpad.device.type != "cpu":

@@ -19,9 +19,18 @@ landed.
 * :func:`block2_fir_halo_fused_plain` is the plain PyTorch version:
   ``left_halo``, then ``block2_fir_plain`` on ``[zeros | halo | x_local]``.
 
-The kernel's sums are kernel B2's (``csrc/fir_tile.cuh``), so on the card
-the concatenated outputs are bitwise equal to ``block2_fir_cuda`` on the
-unsharded stream.  The exchange state is B3's (``HaloExchange``).
+The kernel's sums are kernel B2's: ``csrc/fir_tile.cuh`` on the CUDA cores
+at ``"highest"``, the block run of ``csrc/fir_mma.cuh`` on the tensor cores
+at ``"high"``, every tile starting at a multiple of 8 of the stream index
+(shards start at multiples of the block).  So on the card the concatenated
+outputs are bitwise equal to ``block2_fir_cuda`` on the unsharded stream.
+What bounds it is what bounds B2: the fp32 FMA rate, or at ``"high"``
+the ``mma.sync`` tile, at about a quarter of the tensor cores' bf16 rate.
+:func:`tile_plan` mirrors the kernel's tile plan: which blocks compute the
+tiles that need no halo (wide runs, the taps' Toeplitz tile resident) and
+which wait for the halo and compute y-block 0 (narrow runs, at most
+``MAX_WAIT[mode]`` blocks, so that waiters never fill the card and keep a
+sender off it).  The exchange state is B3's (``HaloExchange``).
 """
 
 from __future__ import annotations
@@ -35,14 +44,21 @@ import torch.nn.functional as F
 
 from llzlab_tpu_torch.kernels import _build
 from llzlab_tpu_torch.kernels import halo_ring as _hr
-from llzlab_tpu_torch.kernels.block2_fir import (MODES, block2_fir_plain,
-                                                 tap_tables)
+from llzlab_tpu_torch.kernels.block2_fir import (MMA_PASS, MODES,
+                                                 block2_fir_plain,
+                                                 mma_smem_bytes, tap_tables)
 from llzlab_tpu_torch.ops.fir import block2_block
 from llzlab_tpu_torch.parallel.halo import left_halo
 from llzlab_tpu_torch.parallel.mesh import DspMesh
 
 __all__ = ["block2_fir_halo_fused", "block2_fir_halo_fused_cuda",
-           "block2_fir_halo_fused_plain", "halo_fused_supports"]
+           "block2_fir_halo_fused_plain", "halo_fused_supports",
+           "tile_plan", "plan_tiles"]
+
+#: constants of csrc/halo_fir_fused.cu
+WRUN, MAX_SEND, MAX_CARD_RANKS = 1024, 8, 16
+#: blocks of a launch that wait for the halo, at most
+MAX_WAIT = {"highest": 32, "high": 16}
 
 
 def halo_fused_supports(channels: int, ntaps: int, t_local: int) -> bool:
@@ -56,6 +72,48 @@ def halo_fused_supports(channels: int, ntaps: int, t_local: int) -> bool:
         return False
     nblk = t_local // block
     return nblk >= 2 and t_local == nblk * block
+
+
+def tile_plan(c: int, t: int, block: int, ntaps: int, mode: str,
+              resident: Optional[int] = None) -> dict:
+    """The kernel's tile plan (``tile_plan`` in csrc/halo_fir_fused.cu) for
+    a ``(c, t)`` shard.  Waiter tiles are ``WRUN`` outputs wide: the first
+    ``nwt`` of a row, ``head`` outputs, walked by ``nwait`` blocks after
+    the halo has landed.  Interior tiles, ``irun`` wide from ``head`` on,
+    are walked by ``n_int_blocks`` blocks: one each at "highest"; at "high"
+    at most the ``resident`` blocks the card holds at once less the waiters
+    (``None``: unbounded).  ``smem_bytes``: a block's shared memory."""
+    high = mode == "high"
+    irun = MMA_PASS if high else WRUN
+    nwt = min(-(-block // WRUN), -(-t // WRUN))
+    head = nwt * WRUN
+    tiles_in = -(-(t - head) // irun) if t > head else 0
+    n_interior = c * tiles_in
+    nwait = min(c * nwt, MAX_WAIT[mode])
+    n_int_blocks = n_interior
+    if high and resident is not None:
+        n_int_blocks = min(n_interior, resident - nwait)
+    grid = n_int_blocks + nwait
+    ntp = -(-ntaps // 32) * 32
+    return dict(irun=irun, nwt=nwt, head=head, tiles_in=tiles_in,
+                n_interior=n_interior, n_int_blocks=n_int_blocks,
+                nwait=nwait, grid=grid, nsend=min(grid, MAX_SEND),
+                smem_bytes=(mma_smem_bytes(ntaps) if high
+                            else 4 * (ntp + WRUN + ntp)))
+
+
+def plan_tiles(plan: dict, c: int, block_index: int):
+    """``(row, first output, width, waits)`` of the tiles that CUDA block
+    ``block_index`` of ``plan`` computes, in order."""
+    nib = plan["n_int_blocks"]
+    if block_index < nib:
+        return [(q // plan["tiles_in"],
+                 plan["head"] + (q % plan["tiles_in"]) * plan["irun"],
+                 plan["irun"], False)
+                for q in range(block_index, plan["n_interior"], nib)]
+    return [(q // plan["nwt"], (q % plan["nwt"]) * WRUN, WRUN, True)
+            for q in range(block_index - nib, c * plan["nwt"],
+                           plan["nwait"])]
 
 
 def _check(parts, taps, mesh, first_shard_value, mode):
@@ -108,6 +166,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.halo_fir_fused_launch.argtypes = (
         [p, p, p, p] + [i] * 6 + [p] * 6 + [i, ll, p])
     lib.halo_fir_fused_launch.restype = i
+    lib.halo_fir_fused_blocks_per_sm.argtypes = [i, i]
+    lib.halo_fir_fused_blocks_per_sm.restype = i
+
+
+def blocks_per_sm(ntaps: int, mode: str) -> int:
+    """Blocks of the kernel that one SM of the current card holds (read
+    from the CUDA occupancy API)."""
+    per_sm = _build.load(
+        "halo_fir_fused", _declare).halo_fir_fused_blocks_per_sm(
+            ntaps, int(mode == "high"))
+    _build.check(-min(per_sm, 0), "halo_fir_fused_blocks_per_sm")
+    return per_sm
 
 
 def block2_fir_halo_fused_cuda(parts: Sequence[torch.Tensor], taps,

@@ -216,7 +216,10 @@ def fir_filter(
 
     With "block2" a CUDA tensor runs kernel B2 and raises outside its
     envelope (channels a multiple of 8, ``ntaps − 1 ≤ 2048``); a CPU tensor
-    runs the plain version.
+    runs the plain version.  On the card, streamed == one shot bitwise for
+    splits at multiples of 8 samples at "high" (the tensor-core sum order
+    depends on the output index mod 8 of a call), which covers every split
+    at a multiple of the block; at "highest" for any split.
     """
     taps_host = np.asarray(
         taps.detach().cpu().numpy() if isinstance(taps, torch.Tensor)

@@ -118,6 +118,60 @@ def test_fused_kernel_over_the_envelope(ntaps, up, down, k, mode):
     assert torch.equal(torch.cat([za, zb], -1), z)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [8, 64])
+@pytest.mark.parametrize("ntaps", [129, 1024, 1025, 2049])
+def test_block2_high_over_the_envelope(ntaps, channels):
+    """Kernel B2 at "high" (tensor cores) against the plain version in f64:
+    ``t`` a multiple of the 4096-output pass, ragged (odd, so rows are not
+    8-byte aligned and ``xpad`` rows are no multiple of 4 long), and shorter
+    than one pass; the history block holds NaN-free random samples."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    rng = np.random.default_rng(46)
+    taps = firwin(ntaps, 0.2)
+    block = block2_block(ntaps)
+    assert bf.supports(channels, ntaps, block)
+    assert bf.blocks_per_sm(ntaps) >= 1
+    for t in (2 * bf.MMA_PASS, bf.MMA_PASS + 1391, 777):
+        xpad = torch.from_numpy(rng.standard_normal(
+            (channels, block + t)).astype(np.float32)).cuda()
+        n = bf.block2_fir_cuda.launches
+        y = bf.block2_fir(xpad, taps, block, mode="high")
+        assert bf.block2_fir_cuda.launches == n + 1
+        ref = bf.block2_fir_plain(xpad.double(), taps, block, "highest")
+        assert y.shape == ref.shape and bool(torch.isfinite(y).all())
+        assert _snr_db(ref, y) >= FLOOR_DB["high"]
+        # every row, and the last outputs of the ragged edge, one by one
+        for row in (0, channels - 1):
+            assert _snr_db(ref[row], y[row]) >= FLOOR_DB["high"]
+        assert _snr_db(ref[:, -8:], y[:, -8:]) >= FLOOR_DB["high"] - 15.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["high", "highest"])
+@pytest.mark.parametrize("ntaps", [129, 1024])
+def test_block2_streamed_equals_one_shot_bitwise(ntaps, mode):
+    """Three stretches of blocks as one call, as 1 + 2 and as 2 + 1, each
+    call with the block before it as history: bitwise the one-shot output
+    (the cuts are multiples of ``block``, so of 8).  At "high" a cut that is
+    no multiple of 8 is outside the contract."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    rng = np.random.default_rng(47)
+    taps = firwin(ntaps, 0.2)
+    block = block2_block(ntaps)
+    part = 5 * block  # no multiple of the 4096-output pass at 1024 taps
+    xpad = torch.from_numpy(rng.standard_normal(
+        (8, block + 3 * part)).astype(np.float32)).cuda()
+    one = bf.block2_fir_cuda(xpad, taps, block, mode)
+    for cut in (part, 2 * part):
+        ya = bf.block2_fir_cuda(xpad[:, :block + cut].contiguous(), taps,
+                                block, mode)
+        yb = bf.block2_fir_cuda(xpad[:, cut:].contiguous(), taps, block, mode)
+        assert torch.equal(torch.cat([ya, yb], -1), one)
+
+
 def _time_mesh(n):
     from llzlab_tpu_torch.parallel.mesh import TIME_AXIS, DspMesh
 
@@ -158,35 +212,44 @@ def test_halo_ring_kernel_matches_plain_version(h, with_carry):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["high", "highest"])
 @pytest.mark.parametrize("n", [2, 4])
-def test_halo_fir_fused_kernel_matches_plain_and_unsharded_kernel(n, mode):
+@pytest.mark.parametrize("ntaps,c", [(256, 8), (1024, 24), (1500, 5)])
+def test_halo_fir_fused_kernel_matches_plain_and_unsharded_kernel(
+        ntaps, c, n, mode):
+    """Three epochs over one mesh: no carry, a carry of ``ntaps − 1``
+    samples, a carry of a whole block.  The shards, concatenated, are
+    bitwise kernel B2 on the unsharded stream, in both modes."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     from llzlab_tpu_torch.kernels import halo_fir_fused as hf
     from llzlab_tpu_torch.kernels import halo_ring as hr
 
     rng = np.random.default_rng(43)
-    ntaps = 256
     taps = firwin(ntaps, 0.3)
     block = block2_block(ntaps)
     t_loc = 5 * block
     mesh = _time_mesh(n)
+    per_sm = hf.blocks_per_sm(ntaps, mode)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert per_sm * sms > (hf.MAX_CARD_RANKS - 1) * hf.MAX_WAIT[mode]
     x = torch.from_numpy(
-        rng.standard_normal((8, n * t_loc)).astype(np.float32)).cuda()
+        rng.standard_normal((c, n * t_loc)).astype(np.float32)).cuda()
     parts = [x[:, r * t_loc:(r + 1) * t_loc].contiguous() for r in range(n)]
-    for carry in (None, torch.from_numpy(rng.standard_normal(
-            (8, ntaps - 1)).astype(np.float32)).cuda()):
+    for h in (None, ntaps - 1, block):
+        carry = None if h is None else torch.from_numpy(
+            rng.standard_normal((c, h)).astype(np.float32)).cuda()
         mesh.fork()
         got = hf.block2_fir_halo_fused(parts, taps, mesh,
                                        first_shard_value=carry, mode=mode)
         mesh.join()
         hr.check_exchanges(mesh)
-        lead = torch.zeros((8, block), device="cuda")
+        lead = torch.zeros((c, block), device="cuda")
         if carry is not None:
-            lead[:, 1:] = carry
+            lead[:, block - h:] = carry
         xpad = torch.cat([lead, x], -1)
-        whole = bf.block2_fir_cuda(xpad, taps, block, mode)
-        assert torch.equal(torch.cat(got, -1), whole)
         ref = bf.block2_fir_plain(xpad.double(), taps, block, "highest")
+        if c % 8 == 0:  # kernel B2's envelope
+            whole = bf.block2_fir_cuda(xpad, taps, block, mode)
+            assert torch.equal(torch.cat(got, -1), whole)
         assert _snr_db(ref, torch.cat(got, -1)) >= FLOOR_DB[mode]
         plain = hf.block2_fir_halo_fused_plain(
             parts, taps, mesh, first_shard_value=carry, mode=mode)

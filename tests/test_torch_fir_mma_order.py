@@ -24,54 +24,10 @@ from llzlab_tpu.ops import resample as rrs
 from llzlab_tpu_torch.kernels import block2_fir as bf
 from llzlab_tpu_torch.kernels import fused_fir_resample as ff
 from tests.conftest import snr_db
+from tests.torch_mma_tile import N, VS_KERNEL_HIGH_DB, VS_PLAIN_DB, \
+    mma_fir, split as _split, tap_tiles as _tap_tiles
 
-N = 8
 UP, DOWN, K = 3, 4, 8
-#: the emulated tile against a plain version at "high": the same bf16x3
-#: products of the same hi/lo parts, only the f32 sum order differs
-VS_PLAIN_DB = 100.0
-#: against the JAX kernel at "high": the floor that
-#: tests/test_torch_fused_fir_resample.py states for the plain version
-VS_KERNEL_HIGH_DB = 110.0
-
-
-def _split(v):
-    """bf16 hi and lo parts of f32 values, as f32 arrays."""
-    hi, lo = bf._bf16_split(torch.from_numpy(np.array(v, np.float32)))
-    return hi.numpy(), lo.numpy()
-
-
-def _tap_tiles(taps):
-    """W's hi and lo tiles from the bf16 tap tables, as the kernel builds
-    them."""
-    hi, lo = bf.tap_tables(taps, "high")
-    return (bf.toeplitz_tile(hi.float().numpy()),
-            bf.toeplitz_tile(lo.float().numpy()))
-
-
-def mma_fir(stream, taps, origin, count):
-    """``y[origin : origin + count]`` (``count % 8 == 0``) of the causal FIR
-    of ``stream (C, T)`` as the tile computes it from a window whose first
-    output is stream index ``origin``; samples before the stream are 0."""
-    wh, wl = _tap_tiles(taps)
-    kt = wh.shape[0]
-    lead = kt - N  # xw[i] is the sample this long before output i
-    lo_i, hi_i = origin - lead, origin + count
-    pad_l, pad_r = max(0, -lo_i), max(0, hi_i - stream.shape[-1])
-    xw = np.pad(stream, ((0, 0), (pad_l, pad_r)))[
-        :, lo_i + pad_l:hi_i + pad_l]
-    xh, xl = _split(xw)
-    view = np.lib.stride_tricks.sliding_window_view
-    xh, xl = view(xh, kt, -1)[:, ::N], view(xl, kt, -1)[:, ::N]  # (C, M, kt)
-    acc = np.zeros(xh.shape[:2] + (N,), np.float32)
-    for c0 in range(0, kt, 32):
-        part = np.zeros_like(acc)
-        for k in range(c0, min(c0 + 32, kt)):
-            part += xh[..., k, None] * wh[k]
-            part += xl[..., k, None] * wh[k]
-            part += xh[..., k, None] * wl[k]
-        acc += part
-    return acc.reshape(stream.shape[0], count)
 
 
 def _case(ntaps, seed, t=1024):
