@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``llzlab_tpu_torch``) on one GPU.
 
-Drives the port's two main paths through the hand-written CUDA kernels and
+Drives the port's main paths through the hand-written CUDA kernels and
 checks them:
 
 1. device: the GPU's name and power limit; all four kernels built with
@@ -36,10 +36,27 @@ checks them:
    for the same function, beside the least time the card could take and
    the time the previous version of the kernel took, and of one sharded
    step per FIR method, halo mode and precision mode; the blocks of B2 and
-   B4 that one SM holds, from the occupancy API.
+   B4 that one SM holds, from the occupancy API;
+6. configs 1 and 2 at their published size, each from its file in
+   ``configs/``: config 1 (1 x 480 000, ``firwin(1024, 0.25, hamming)``)
+   through ``Chain([FIRStage(method="auto")])``, one B2 launch on the row a
+   call, streamed in the ``fir`` tool's blocks at ``highest`` and ``high``
+   (bitwise one shot, the one-row launch, the launch on the row padded to 8
+   and the JAX package's low-channel fold; B2 against its plain version on
+   the one-shot row, a tool block's row and the fold's rows; SNR against
+   scipy float64), and the preset's ``ols``, ``direct`` and ``im2col``;
+   config 2 (8 x 480 000 through 147/160, K = 64, beta = 8) streamed
+   against ``upfirdn``, with ``decimate`` and the FFT ``resample`` against
+   scipy; the ``fir`` and ``resample`` tools in process on WAVs of the same
+   signals; CUDA-event times of the one-row launch, the fold, the other
+   engines and config 2's step, each beside its bound, and the host's time
+   per ``FIRStage.apply``.
 
 Every phase raises on failure.  The last line of stdout is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
+A kernel's ``launches`` there sums the main paths it runs on, each counted
+from 0 over one run (B2: the channelizer at ``high``, config 1 in each
+mode and the ``fir`` tool); ``launches_by_path`` gives each count.
 Needs one CUDA GPU; exits non-zero, printing no result, without one.
 
     python3 chip_smoke.py
@@ -169,6 +186,258 @@ def host_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         times.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     return float(np.median(times[warmup:]))
+
+
+def fold_geometry(b: int, t: int, block: int):
+    """``(L, R)`` of the JAX package's low-channel block2 fold
+    (``_fir_filter_block2_pallas_folded``): ``R`` rows of ``L`` outputs, ``L``
+    a multiple of the block, at most ``max(8, 1024 // b)`` rows.  The port
+    does not fold (a launch takes any row count); phase 6 holds the fold
+    against the one-row launch and times both."""
+    l = -(-t // (block * max(8, 1024 // b))) * block
+    return l, -(-t // l)
+
+
+def fold_rows(xpad, block: int, l: int):
+    """``(B, block + T)`` -> ``(B·R, block + l)``: row ``r`` of channel ``c``
+    holds its outputs ``r·l … r·l + l − 1`` with the block of input before
+    them (zeros past the end), ``R = ⌈T / l⌉``."""
+    import torch.nn.functional as F
+
+    b, tp = xpad.shape
+    r = -(-(tp - block) // l)
+    xp = F.pad(xpad, (0, block + r * l - tp))
+    return xp.unfold(-1, block + l, l).reshape(b * r, block + l).contiguous()
+
+
+def configs_1_and_2(dev, smi, rng, reset_launches, read_launches):
+    """Phase 6: configs 1 and 2 at their published size, each from its file
+    in ``configs/``, through the entry points their users call, then the
+    ``fir`` and ``resample`` tools on WAVs of the same signals.  Returns the
+    launches of B2 on each of these paths (config 1's chain in each mode,
+    the ``fir`` tool) and B2's largest max |kernel - plain| here."""
+    import tempfile
+
+    import scipy.signal as ss
+    import torch
+    import torch.nn.functional as F
+
+    from llzlab_tpu_torch import (Chain, FIRStage, ResampleStage, decimate,
+                                  firwin, resample, resample_taps)
+    from llzlab_tpu_torch.cli import fir as fir_cli
+    from llzlab_tpu_torch.cli import resample as resample_cli
+    from llzlab_tpu_torch.io.wav import read_wav, write_wav
+    from llzlab_tpu_torch.kernels import block2_fir as bf
+    from llzlab_tpu_torch.ops import fir as fir_ops
+    from llzlab_tpu_torch.ops.resample import resample_output_len
+    from llzlab_tpu_torch.utils.config import from_json
+
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def config(name):
+        with open(os.path.join(root, "configs", name + ".json")) as f:
+            return from_json(f.read())
+
+    def snr(ref, y):
+        return min_channel_snr_db(ref[:, :y.shape[-1]], y)
+
+    def check(what, got_db, floor):
+        log(f"[config] {what}: min-channel SNR vs scipy f64 {got_db:.1f} dB "
+            f"(floor {floor})")
+        if not got_db >= floor:
+            raise RuntimeError(f"{what}: SNR {got_db:.1f} dB below {floor}")
+
+    # ---- config 1: FIR alone, 1 x 480 000, firwin(1024, 0.25, hamming) ----
+    cfg1 = config("fir_lowpass_1ch")
+    f1 = cfg1.fir
+    t1 = int(cfg1.sample_rate * cfg1.seconds)
+    taps = firwin(f1.numtaps, f1.cutoff if len(f1.cutoff) > 1 else
+                  f1.cutoff[0], window=f1.window, pass_zero=f1.kind)
+    block = fir_ops.block2_block(len(taps))
+    x1_np = rng.standard_normal((cfg1.channels, t1)).astype(np.float32)
+    gold1 = ss.lfilter(taps, [1.0], x1_np.astype(np.float64), axis=-1)
+    x1 = torch.from_numpy(x1_np).to(dev)
+    chain1 = Chain([FIRStage(taps)])
+    if chain1.stages[0].method != "block2":
+        raise RuntimeError(f"FIRStage(method='auto') resolved to "
+                           f"{chain1.stages[0].method!r} at {len(taps)} taps")
+    # the fir tool's blocks: two seconds, cut to the stage's grid
+    m1 = chain1.block_multiple
+    blk1 = int(2.0 * cfg1.sample_rate) // m1 * m1
+    blocks1 = [x1[:, i:i + blk1] for i in range(0, t1, blk1)]
+    lw, rw = fold_geometry(cfg1.channels, t1, block)
+    log(f"[config] config 1 ({cfg1.name}): {cfg1.channels} x {t1}, "
+        f"{len(taps)} taps, FIRStage(auto) -> block2, one B2 launch on the "
+        f"row a call, streamed in {len(blocks1)} blocks of {blk1} (the fir "
+        f"tool's)")
+    xpad1 = F.pad(x1, (block, 0))
+    rows1 = fold_rows(xpad1, block, lw)
+
+    def against_plain(what, xp, mode):
+        """B2 on ``xp`` against its plain version: max |kernel - plain|,
+        and the SNR against the plain version in float64."""
+        got = bf.block2_fir_cuda(xp, taps, block, mode)
+        plain = bf.block2_fir_plain(xp, taps, block, mode)
+        ref64 = bf.block2_fir_plain(xp.double(), taps, block, "highest")
+        err = float((got - plain).abs().max())
+        db = device_snr_db(ref64, got)
+        log(f"[kernel] block2_fir {mode:7s} config 1, {what} "
+            f"{tuple(xp.shape)}: max|kernel-plain| {err:.3e}, SNR vs plain "
+            f"f64 {db:.1f} dB (floor {KERNEL_FLOOR_DB[mode]})")
+        if not (torch.isfinite(got).all() and db >= KERNEL_FLOOR_DB[mode]):
+            raise RuntimeError(f"block2_fir {mode} config 1, {what}: SNR "
+                               f"{db:.1f} dB below {KERNEL_FLOOR_DB[mode]}")
+        return got, err
+
+    launches, b2_err = {}, 0.0
+    for mode in MODES[::-1]:
+        with matmul_precision(mode):
+            reset_launches()
+            streamed = torch.cat(list(chain1.stream(blocks1)), dim=-1)
+            one = chain1(x1)
+            launches[f"config 1 {mode}"] = read_launches(
+                ("block2_fir",), f"config 1 {mode}")["block2_fir"]
+        # B2 at the shapes this path gives it (the one-shot row, the first
+        # tool block's, which has no history), and on the JAX package's
+        # fold of the one-shot row, which the port does not make
+        row, e1 = against_plain("the one-shot row", xpad1, mode)
+        _, e2 = against_plain("a fir tool block's row",
+                              xpad1[:, :block + blk1], mode)
+        fold, e3 = against_plain(f"the JAX package's fold ({rw} rows of "
+                                 f"L = {lw})", rows1, mode)
+        b2_err = max(b2_err, e1, e2, e3)
+        fold = fold.reshape(cfg1.channels, -1)[:, :t1]
+        pad8 = bf.block2_fir_cuda(
+            F.pad(xpad1, (0, 0, 0, 8 - cfg1.channels)), taps, block,
+            mode)[:cfg1.channels]
+        torch.cuda.synchronize()
+        for what, a, b in (("streamed != one shot", streamed, one),
+                           ("one shot != the one-row launch", one, row),
+                           ("the one-row launch != the launch on 8 rows",
+                            row, pad8),
+                           ("the JAX package's fold != the one-row launch",
+                            fold, row)):
+            if not torch.equal(a, b):
+                raise RuntimeError(f"config 1 {mode}: {what}")
+        log(f"[config] config 1 {mode:7s}: streamed == one shot == the "
+            f"one-row launch == that row padded to 8 rows == the JAX "
+            f"package's fold, bitwise")
+        check(f"config 1 FIRStage(block2) {mode}", snr(gold1,
+              streamed.cpu().numpy()), CHAIN_FLOOR_DB[mode])
+        del row, fold, pad8, streamed, one
+    outs = {}
+    for method in ("ols", "direct", "im2col"):
+        st = FIRStage(taps, method=method,
+                      nfft=f1.nfft if method == "ols" else None)
+        outs[method] = Chain([st])(x1)
+        check(f"config 1 FIRStage({method})"
+              + (" (the preset's method)" if method == f1.method else ""),
+              snr(gold1, outs[method].cpu().numpy()), 80.0)
+
+    # ---- config 2: resample 147/160, K = 64, beta = 8, 8 x 480 000 -------
+    cfg2 = config("resample_8ch")
+    rc = cfg2.resample
+    t2 = int(cfg2.sample_rate * cfg2.seconds)
+    rtaps = resample_taps(rc.up, rc.down, rc.taps_per_phase,
+                          window=("kaiser", rc.kaiser_beta))
+    x2_np = rng.standard_normal((cfg2.channels, t2)).astype(np.float32)
+    x64 = x2_np.astype(np.float64)
+    gold2 = ss.upfirdn(rtaps, x64, rc.up, rc.down, axis=-1)
+    x2 = torch.from_numpy(x2_np).to(dev)
+    chain2 = Chain([ResampleStage(rc.up, rc.down, taps=rtaps)])
+    m2 = chain2.block_multiple
+    blk2 = int(2.0 * cfg2.sample_rate) // m2 * m2
+    blocks2 = [x2[:, i:i + blk2] for i in range(0, t2, blk2)]
+    streamed2 = torch.cat(list(chain2.stream(blocks2)), dim=-1)
+    if not torch.equal(streamed2, chain2(x2)):
+        raise RuntimeError("config 2: streamed != one shot")
+    log(f"[config] config 2 ({cfg2.name}): {cfg2.channels} x {t2} -> "
+        f"{tuple(streamed2.shape)}, {len(blocks2)} blocks of {blk2}, "
+        f"streamed == one shot bitwise")
+    check("config 2 ResampleStage(147, 160)", snr(gold2,
+          streamed2.cpu().numpy()), 80.0)
+    q = 4
+    check(f"decimate(x, {q}) vs upfirdn", snr(
+        ss.upfirdn(resample_taps(1, q), x64, 1, q, axis=-1),
+        decimate(x2, q).cpu().numpy()), 80.0)
+    num = int(round(t2 * 44100 / cfg2.sample_rate))
+    check(f"resample(x, {num}) vs scipy.signal.resample", snr(
+        ss.resample(x64, num, axis=-1), resample(x2, num).cpu().numpy()),
+        80.0)
+
+    # ---- the tools, in process, on WAVs of the same signals ------------
+    with tempfile.TemporaryDirectory() as tmp:
+        wav1, wav2 = os.path.join(tmp, "c1.wav"), os.path.join(tmp, "c2.wav")
+        write_wav(wav1, x1_np, int(cfg1.sample_rate))
+        write_wav(wav2, x2_np, int(cfg2.sample_rate))
+        reset_launches()
+        _, msps = fir_cli.main(["-i", wav1, "-o", wav1 + ".out", "--taps",
+                                str(f1.numtaps), "--cutoff",
+                                str(f1.cutoff[0])])
+        launches["fir tool"] = read_launches(("block2_fir",),
+                                             "fir tool")["block2_fir"]
+        y, rate = read_wav(wav1 + ".out")
+        check(f"fir tool ({msps:.1f} Msamples/s of its own clock, file to "
+              f"file), {y.shape} at {rate} Hz", snr(gold1, y),
+              CHAIN_FLOOR_DB["highest"])
+        _, msps = resample_cli.main(["-i", wav2, "-o", wav2 + ".out",
+                                     "--rate", "44100"])
+        y, rate = read_wav(wav2 + ".out")
+        if rate != 44100 or y.shape != tuple(streamed2.shape):
+            raise RuntimeError(f"resample tool: {y.shape} at {rate} Hz")
+        check(f"resample tool ({msps:.1f} Msamples/s), {y.shape} at {rate} "
+              f"Hz", snr(gold2, y), 80.0)
+
+    # ---- times: CUDA events, each beside its bound ----------------------
+    n1 = cfg1.channels * t1
+    by1 = 4.0 * (xpad1.numel() + n1)
+    bound1 = {"highest": fir_bound_ms(2.0 * len(taps) * n1, by1),
+              "high": fir_bound_ms(3 * 2.0 * len(taps) * n1, by1, BF16_PEAK)}
+    for mode in MODES[::-1]:
+        fns = {"row": lambda: bf.block2_fir_cuda(xpad1, taps, block, mode),
+               "fold": lambda: bf.block2_fir_cuda(
+                   fold_rows(xpad1, block, lw), taps, block,
+                   mode).reshape(cfg1.channels, -1)[:, :t1],
+               "rows": lambda: bf.block2_fir_cuda(rows1, taps, block, mode)}
+        reads = {k: [] for k in fns}
+        for _ in range(2):  # in turns, twice
+            for k, f in fns.items():
+                reads[k].append(cuda_ms(f))
+        ms = {k: float(np.median(v)) for k, v in reads.items()}
+        plain_ms = cuda_ms(lambda: bf.block2_fir_plain(xpad1, taps, block,
+                                                       mode))
+        b, by = bound1[mode]
+        log(f"[time] config 1 block2 {mode:7s} {cfg1.channels}x{t1}: "
+            f"one-row launch (the port's) {ms['row']:.4f} ms, the JAX "
+            f"package's fold {ms['fold']:.4f} ms (framing + B2 on {rw} rows; "
+            f"B2 alone {ms['rows']:.4f} ms), plain on the row {plain_ms:.4f} "
+            f"ms, bound {b:.4f} ms ({by}) on {smi}")
+    b, by = bound1["highest"]
+    for method in ("ols", "direct", "im2col"):
+        ms = cuda_ms(lambda: fir_ops.fir_filter(x1, taps, method=method))
+        log(f"[time] config 1 fir_filter({method}) {cfg1.channels}x{t1}: "
+            f"{ms:.4f} ms, bound {b:.4f} ms ({by}, the FIR's own work in "
+            f"fp32) on {smi}")
+    st2 = chain2.init_state((cfg2.channels,), device=dev)
+    n_out = resample_output_len(blk2, rc.up, rc.down)
+    b, by = fir_bound_ms(2.0 * rc.taps_per_phase * cfg2.channels * n_out,
+                         4.0 * cfg2.channels * (blk2 + n_out))
+    ms = cuda_ms(lambda: chain2.apply(blocks2[0], st2))
+    log(f"[time] config 2 step {cfg2.channels}x{blk2}: {ms:.4f} ms "
+        f"({cfg2.channels * blk2 / ms / 1e3:.0f} Msamples/s), bound "
+        f"{b:.4f} ms ({by}, K products per output) on {smi}")
+    ms = cuda_ms(lambda: chain2(x2))
+    log(f"[time] config 2 one shot {cfg2.channels}x{t2}: {ms:.4f} ms on "
+        f"{smi}")
+    for mode in MODES[::-1]:
+        with matmul_precision(mode):
+            st1 = chain1.init_state((cfg1.channels,), device=dev)
+            ms = host_ms(lambda: chain1.apply(blocks1[0], st1))
+            dev_ms = cuda_ms(lambda: chain1.apply(blocks1[0], st1))
+        log(f"[time] config 1 FIRStage.apply {mode:7s} at the fir tool's "
+            f"block ({cfg1.channels}x{blk1}): the host takes {ms:.4f} ms to "
+            f"enqueue it, the card {dev_ms:.4f} ms back to back, on {smi}")
+    return launches, b2_err
 
 
 def main() -> int:
@@ -846,6 +1115,17 @@ def main() -> int:
                 f"{CZ_RANKS * t_loc} ({n_in / ms / 1e3:.0f} Msamples/s) on "
                 f"{smi}")
     hr.check_exchanges(mesh)
+
+    # ---- phase 6: configs 1 and 2 and the fir / resample tools ----------
+    del parts, parts_f, x_cz
+    torch.cuda.empty_cache()
+    by_path = {name: {"channelizer high": n}
+               for name, n in launches.items()}
+    config_launches, err = configs_1_and_2(dev, smi, rng, reset_launches,
+                                           read_launches)
+    by_path["block2_fir"].update(config_launches)
+    launches["block2_fir"] += sum(config_launches.values())
+    errors["block2_fir"] = max(errors["block2_fir"], err)
     log(f"[memory] peak device memory allocated in this run: "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
 
@@ -862,6 +1142,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"llzlab_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches[name],
+            "launches_by_path": by_path[name],
             "max_abs_err": errors[name], "ms": ms, "plain_ms": pms,
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
             "library_ms": lms,

@@ -13,21 +13,34 @@ Layering:
     parallel/ — the rank mesh and the halo exchange between time shards
     pipeline/ — chain composition + streaming
     chains/   — the channelizer, on one device and sharded over time
-    utils/    — checkpoint/resume
+    utils/    — checkpoint/resume, configs, metrics
+    io/, cli/ — WAV I/O and the ``fir`` and ``resample`` tools
 
-Ported so far: FIR design and filtering (block2, overlap-save, direct),
-polyphase resampling, the fused FIR→resample step, the FFT entry points,
-and the channelizer with its time-sharded step.
+Ported so far: FIR design (window, frequency sampling, Kaiser, least
+squares, minimum phase, Remez) and filtering (block2 on any channel
+count, overlap-save, direct, im2col), polyphase, FFT and decimating
+resampling, the fused FIR→resample step, the FFT entry points, the
+channelizer with its time-sharded step, and the ``fir`` and ``resample``
+tools.
 """
 
 __version__ = "0.1.0"
 
 from llzlab_tpu_torch.ops import (  # noqa: F401
+    remez,
     firwin,
     fir_filter,
     resample_poly,
     resample_taps,
     fir_resample,
+    firls,
+    minimum_phase,
+)
+# imported from the submodule, not llzlab_tpu_torch.ops, so the scipy-named
+# function never shadows the ops.resample module
+from llzlab_tpu_torch.ops.resample import resample, decimate  # noqa: F401
+from llzlab_tpu_torch.ops.fir import (  # noqa: F401
+    firwin2, kaiserord, kaiser_beta, kaiser_atten,
 )
 from llzlab_tpu_torch.ops.transform import (  # noqa: F401
     fft,

@@ -4,7 +4,8 @@ Replaces the Pallas TPU kernel ``llzlab_tpu/kernels/block2_fir.py``
 (``_kernel_high`` / ``_kernel_highest``, entry ``block2_fir_pallas``).
 Contract (the same): ``xpad (B, block + T)`` f32 with one block of history
 prepended → ``y (B, T)``, ``y[n] = Σ_k h[k]·xpad[block + n − k]``,
-``block ≥ ntaps − 1``.
+``block ≥ ntaps − 1``.  The envelope differs in rows: the JAX kernel needs
+a multiple of 8, this one takes any count (:func:`cuda_supports`).
 
 * :func:`block2_fir` is the entry: a CUDA tensor launches the kernel
   (:func:`block2_fir_cuda`, which counts its launches in ``.launches``),
@@ -49,15 +50,17 @@ import torch.nn.functional as F
 
 from llzlab_tpu_torch.kernels import _build
 
-__all__ = ["supports", "band_k", "bf16_hi_lo", "tap_tables", "plain_tables",
-           "mma_rows", "toeplitz_tile", "mma_plan", "SMEM_MAX",
+__all__ = ["supports", "cuda_supports", "band_k", "bf16_hi_lo", "tap_tables",
+           "plain_tables", "mma_rows", "toeplitz_tile", "mma_plan", "SMEM_MAX",
            "block2_fir", "block2_fir_cuda", "block2_fir_plain"]
 
 MODES = ("high", "highest")
 
 
 def supports(channels: int, ntaps: int, block: int) -> bool:
-    """Shape envelope of the kernel (the JAX package's, unchanged)."""
+    """Shape envelope of the JAX package's kernel (channels a multiple of
+    its matrix unit's 8-row tile), kept for the tests that pin it; the
+    CUDA kernel's own is :func:`cuda_supports`."""
     return (
         channels >= 8
         and channels % 8 == 0
@@ -65,6 +68,20 @@ def supports(channels: int, ntaps: int, block: int) -> bool:
         and ntaps - 1 <= block
         and block <= 2048
     )
+
+
+#: rows of one launch: the grid's y extent at "highest"
+MAX_ROWS = 65535
+
+
+def cuda_supports(rows: int, ntaps: int, block: int, t: int) -> bool:
+    """Shape envelope of kernel B2: any row count, ``block`` a multiple of
+    128 with ``ntaps − 1 ≤ block ≤ 2048``, and some outputs.  (The JAX
+    kernel's ``rows % 8`` is its matrix unit's row tile; at "high" this
+    kernel walks (row, pass) units and at "highest" its grid is one block
+    per (run, row), so no row count needs padding.)"""
+    return (1 <= rows <= MAX_ROWS and block % 128 == 0
+            and ntaps - 1 <= block <= 2048 and t > 0)
 
 
 def _w_matrix(taps: np.ndarray, block: int) -> np.ndarray:
@@ -267,11 +284,12 @@ def block2_fir_cuda(xpad: torch.Tensor, taps, block: int,
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     b, tp = xpad.shape
     t = tp - block
-    if not supports(b, ntaps, block) or t <= 0:
+    if not cuda_supports(b, ntaps, block, t):
         raise ValueError(
-            f"block2 kernel envelope: channels % 8 == 0, block % 128 == 0, "
-            f"ntaps − 1 ≤ block ≤ 2048, T > 0 (got channels={b}, "
-            f"ntaps={ntaps}, block={block}, T={t})")
+            f"block2 kernel envelope: 1 ≤ rows ≤ {MAX_ROWS}, block % 128 == "
+            f"0, ntaps − 1 ≤ block ≤ 2048, T > 0 (got rows={b}, "
+            f"ntaps={ntaps}, block={block}, T={t}); above 2049 taps use "
+            f"fir_filter(method='ols')")
     lib = _build.load("block2_fir", _declare)
     with torch.cuda.device(xpad.device):
         tabs = tap_tables(taps, mode, xpad.device)

@@ -1,8 +1,27 @@
 """User-facing numerical ops of the port."""
 
-from llzlab_tpu_torch.ops.fir import firwin, fir_filter  # noqa: F401
+from llzlab_tpu_torch.ops.fir import (  # noqa: F401
+    firwin,
+    firwin2,
+    firls,
+    minimum_phase,
+    kaiserord,
+    kaiser_beta,
+    kaiser_atten,
+    fir_filter,
+    fir_halo,
+    default_nfft,
+    ols_hop,
+    fir_state_len,
+)
+from llzlab_tpu_torch.ops.fused_chain import fir_resample  # noqa: F401
+from llzlab_tpu_torch.ops.remez import remez  # noqa: F401
 from llzlab_tpu_torch.ops.resample import (  # noqa: F401
     resample_poly,
     resample_taps,
+    resample_output_len,
 )
-from llzlab_tpu_torch.ops.fused_chain import fir_resample  # noqa: F401
+# The scipy-named `resample` FUNCTION is exported only from the top-level
+# package: binding it here would shadow the `ops.resample` submodule name.
+from llzlab_tpu_torch.ops.resample import decimate  # noqa: F401
+from llzlab_tpu_torch.ops.resample import resample as resample_fft  # noqa: F401

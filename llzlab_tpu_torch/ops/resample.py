@@ -1,4 +1,8 @@
-"""Polyphase rational resampling (port of ``llzlab_tpu/ops/resample.py``).
+"""Rational and Fourier resampling (port of ``llzlab_tpu/ops/resample.py``).
+
+``resample`` is the FFT resampler (scipy.signal.resample), ``decimate`` the
+integer polyphase downsampler; the rest of this docstring is the polyphase
+engine under ``resample_poly``.
 
 For output group ``s`` (outputs ``m = up·s + p``), every window lives in the
 slab ``x[s·down − (K−1) .. s·down + down − 1]`` of ``down + K − 1`` samples.
@@ -23,14 +27,70 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from llzlab_tpu_torch.ops import transform as _tf
 from llzlab_tpu_torch.ops.fir import firwin
+from llzlab_tpu_torch.ops.window import get_window
 
 __all__ = [
     "resample_taps",
     "polyphase_weights",
     "resample_poly",
     "resample_output_len",
+    "resample_halo",
+    "decimate",
+    "resample",
 ]
+
+
+def resample(x: torch.Tensor, num: int, *, window=None) -> torch.Tensor:
+    """Fourier-domain resampling to exactly ``num`` samples along the last
+    axis (scipy.signal.resample semantics for real input).
+
+    The rFFT spectrum is truncated / zero-extended to the new rate with
+    scipy's Nyquist-bin split, optionally shaped by ``window`` (a
+    :func:`llzlab_tpu_torch.ops.window.get_window` spec applied to the
+    full spectrum in fftshift order).  Best for periodic signals; for
+    streaming rational ratios use :func:`resample_poly`.  Compute is f32
+    (``ops/transform.py``: cuFFT on a CUDA tensor); the output has x's
+    dtype.
+    """
+    t = x.shape[-1]
+    num = int(num)
+    spec = _tf.rfft(x.to(torch.float32), t)
+    if window is not None:
+        w_full = np.fft.ifftshift(get_window(window, t, periodic=True))
+        # fold negative-frequency window halves onto the rfft bins
+        w_real = w_full.copy()
+        w_real[1:] += w_full[-1:0:-1]
+        w_real[1:] *= 0.5
+        spec = spec * torch.from_numpy(
+            w_real[: t // 2 + 1].astype(np.float32)).to(x.device)
+    n = min(num, t)
+    nyq = n // 2 + 1
+    y = spec.new_zeros(x.shape[:-1] + (num // 2 + 1,))
+    y[..., :nyq] = spec[..., :nyq]
+    if n % 2 == 0:
+        if num < t:
+            # folding the (dropped) negative Nyquist partner back in
+            y[..., n // 2] *= 2.0
+        elif num > t:
+            # the old Nyquist bin splits between ±N/2 of the longer signal
+            y[..., n // 2] *= 0.5
+    return (_tf.irfft(y, num) * (num / t)).to(x.dtype)
+
+
+def decimate(x: torch.Tensor, q: int, *, taps_per_phase: int = 64,
+             window=("kaiser", 8.0)) -> torch.Tensor:
+    """Anti-aliased integer downsampling by ``q`` (FIR polyphase path):
+    ``resample_poly(x, 1, q)`` with a stopband-at-Nyquist lowpass, the FIR
+    analog of ``scipy.signal.decimate(ftype="fir")``."""
+    return resample_poly(x, 1, q, taps_per_phase=taps_per_phase,
+                         window=window)
+
+
+def resample_halo(taps_per_phase: int) -> int:
+    """Input history samples a shard needs from its left neighbour."""
+    return taps_per_phase - 1
 
 
 def resample_output_len(t: int, up: int, down: int) -> int:

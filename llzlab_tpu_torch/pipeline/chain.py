@@ -9,8 +9,8 @@ there is no jit region: a block's stages run one after the other on the
 device of the block.  States are tuples of tensors, created on the device
 the caller names.
 
-Stages of this slice: ``FIRStage`` (block2), ``ResampleStage``,
-``FusedFirResampleStage`` and ``LambdaStage``.
+Stages ported so far: ``FIRStage`` (every engine of ops/fir.py),
+``ResampleStage``, ``FusedFirResampleStage`` and ``LambdaStage``.
 """
 
 from __future__ import annotations
@@ -54,27 +54,37 @@ class Stage:
 
 
 class FIRStage(Stage):
-    """Causal FIR filtering (ops/fir.py; the block2 engine in this slice)."""
+    """Causal FIR filtering (ops/fir.py), with any of its engines.
 
-    def __init__(self, taps, *, method: str = "auto"):
+    ``"auto"`` resolves once, at build (the state length depends on the
+    engine): block2 up to 2048 taps, else ols (``fir.resolve_method``).
+    ``block_multiple`` is the engine's frame grid, so that streamed blocks
+    equal one shot: the block for block2, the hop for ols, 1 for direct
+    and im2col, as in the JAX package.
+    """
+
+    def __init__(self, taps, *, method: str = "auto",
+                 nfft: Optional[int] = None):
         self.taps = np.asarray(taps, dtype=np.float64)
-        if method == "auto":
-            method = "block2"
-        if method != "block2":
-            raise NotImplementedError(
-                f"FIRStage(method={method!r}) is not ported yet (ROADMAP "
-                f"queue A, 'FIR alone'); use method='block2'")
-        self.method = method
-        self._state_len = _fir.fir_state_len(len(self.taps), None, method)
-        self.block_multiple = _fir.block2_block(len(self.taps))
+        self.nfft = nfft
+        ntaps = len(self.taps)
+        self.method = _fir.resolve_method(method, ntaps)
+        eff_nfft = nfft or _fir.default_nfft(ntaps)
+        self._state_len = _fir.fir_state_len(ntaps, eff_nfft, self.method)
+        if self.method == "ols":
+            self.block_multiple = _fir.ols_hop(ntaps, eff_nfft)
+        elif self.method == "block2":
+            self.block_multiple = _fir.block2_block(ntaps)
+        else:
+            self.block_multiple = 1
 
     def init_state(self, batch_shape, *, device, dtype=torch.float32):
         return torch.zeros(tuple(batch_shape) + (self._state_len,),
                            dtype=dtype, device=device)
 
     def apply(self, x, state):
-        return _fir.fir_filter(x, self.taps, method=self.method, zi=state,
-                               return_zf=True)
+        return _fir.fir_filter(x, self.taps, method=self.method,
+                               nfft=self.nfft, zi=state, return_zf=True)
 
 
 class ResampleStage(Stage):

@@ -1,1 +1,1 @@
-"""Checkpoint utilities."""
+"""Checkpoint, config and metrics utilities."""

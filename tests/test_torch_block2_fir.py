@@ -91,9 +91,13 @@ def test_cpu_path_runs_plain_version_and_kernel_wrapper_needs_cuda():
 
 @pytest.mark.parametrize("method", ["im2col"])
 def test_unported_methods_raise(method):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pfir.fir_filter(torch.zeros(8, 256), pfir.firwin(129, 0.2),
-                        method=method)
+    """"im2col" was the one method left to port: it now agrees with the JAX
+    package (f32 products in another sum order, VS_XLA_DB["highest"]), and
+    "fft", which the JAX package does not know either, still raises."""
+    taps, _, x, _ = _signal(129, seed=9)
+    y_ref = rfir.fir_filter(jnp.asarray(x), taps, method=method)
+    y = pfir.fir_filter(torch.from_numpy(x), taps, method=method)
+    assert snr_db(np.asarray(y_ref), y.numpy()) >= VS_XLA_DB["highest"]
     with pytest.raises(ValueError, match="unknown method"):
         pfir.fir_filter(torch.zeros(8, 256), pfir.firwin(129, 0.2),
                         method="fft")

@@ -175,7 +175,9 @@ def test_port_imports_no_jax():
         "for needed in ('chains.channelizer', 'parallel.mesh', "
         "'parallel.halo', 'kernels.halo_ring', 'kernels.halo_fir_fused', "
         "'kernels.block2_fir', 'kernels.fused_fir_resample', "
-        "'ops.transform', 'utils.checkpoint'):\n"
+        "'ops.transform', 'utils.checkpoint', 'ops.remez', 'ops.resample', "
+        "'utils.config', 'utils.metrics', 'io.wav', 'cli.common', "
+        "'cli.fir', 'cli.resample'):\n"
         "    assert 'llzlab_tpu_torch.' + needed in names, needed\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from llzlab_tpu_torch.kernels import block2_fir as bf
 from llzlab_tpu_torch.kernels import fused_fir_resample as ff
 from llzlab_tpu_torch.ops.fir import block2_block, firwin
@@ -343,3 +344,76 @@ def test_sharded_step_after_a_timed_out_receive_raises(monkeypatch):
         step(parts, st)
     step(parts, st)  # the error was reported once; the exchange works again
     hr.check_exchanges(mesh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["high", "highest"])
+@pytest.mark.parametrize("channels", [1, 3, 12])
+def test_block2_runs_any_channel_count(channels, mode, monkeypatch):
+    """``fir_filter(method="block2")`` launches B2 once for 1, 3 and 12
+    channels, on the channels as they are; its output is bitwise the launch
+    on the rows padded to 8, and the launch on the JAX package's fold of
+    the rows (``chip_smoke.fold_rows``); a stream of three calls is bitwise
+    one shot."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from llzlab_tpu_torch.ops.fir import fir_filter
+
+    monkeypatch.setenv("LLZ_MATMUL_PRECISION", mode)
+    rng = np.random.default_rng(60 + channels)
+    taps = firwin(1024, 0.25)
+    block = block2_block(1024)
+    x = torch.from_numpy(rng.standard_normal(
+        (channels, 9 * block + 37)).astype(np.float32)).cuda()
+    n = bf.block2_fir_cuda.launches
+    y = fir_filter(x, taps, method="block2")
+    assert bf.block2_fir_cuda.launches == n + 1
+    xpad = torch.cat([torch.zeros((channels, block), device="cuda"), x], -1)
+    ref = bf.block2_fir_plain(xpad.double(), taps, block, "highest")
+    assert y.shape == x.shape and _snr_db(ref, y) >= FLOOR_DB[mode]
+    pad8 = torch.cat([xpad, torch.zeros((8, xpad.shape[1]), device="cuda")])
+    assert torch.equal(bf.block2_fir_cuda(pad8[:max(8, channels)], taps,
+                                          block, mode)[:channels], y)
+    l, _ = chip_smoke.fold_geometry(channels, x.shape[1], block)
+    folded = bf.block2_fir_cuda(chip_smoke.fold_rows(xpad, block, l), taps,
+                                block, mode)
+    assert torch.equal(folded.reshape(channels, -1)[:, :x.shape[1]], y)
+    ys, zf = [], None
+    for a, b in ((0, 3 * block), (3 * block, 5 * block), (5 * block, None)):
+        part, zf = fir_filter(x[:, a:b], taps, zi=zf, return_zf=True)
+        ys.append(part)
+    assert torch.equal(torch.cat(ys, -1), y)
+
+
+@pytest.mark.cuda
+def test_block2_above_2049_taps_raises_and_auto_takes_ols():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from llzlab_tpu_torch.ops.fir import fir_filter
+
+    taps = firwin(2050, 0.25)
+    x = torch.randn((1, 3 * 4096), device="cuda")
+    n = bf.block2_fir_cuda.launches
+    with pytest.raises(ValueError, match="ols"):
+        fir_filter(x, taps, method="block2")
+    y, zf = fir_filter(x, taps, return_zf=True)
+    assert bf.block2_fir_cuda.launches == n
+    assert torch.equal(y, fir_filter(x, taps, method="ols"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["ols", "direct", "im2col"])
+def test_fir_engines_on_the_card(method):
+    """The plain engines on a CUDA tensor (cuFFT, cuDNN with TF32 off,
+    cuBLAS) against the float64 plain version of B2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from llzlab_tpu_torch.ops.fir import fir_filter
+
+    taps = firwin(1024, 0.25)
+    block = block2_block(1024)
+    x = torch.randn((2, 20000), device="cuda")
+    y = fir_filter(x, taps, method=method)
+    xpad = torch.cat([torch.zeros((2, block), device="cuda"), x], -1)
+    ref = bf.block2_fir_plain(xpad.double(), taps, block, "highest")
+    assert y.is_cuda and _snr_db(ref, y) >= 110.0
