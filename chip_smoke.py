@@ -50,7 +50,23 @@ checks them:
    scipy; the ``fir`` and ``resample`` tools in process on WAVs of the same
    signals; CUDA-event times of the one-row launch, the fold, the other
    engines and config 2's step, each beside its bound, and the host's time
-   per ``FIRStage.apply``.
+   per ``FIRStage.apply``;
+7. config 4 at its published size (``configs/stft_gain_256ch.json``: 256 x
+   480 000, 2048-point frames, hop 512, periodic Hann) through
+   ``SpectralGainStage`` with each of its three engines and the ``stft``
+   tool's gain (-6 dB, a notch over 1-2 kHz): one shot and streamed in the
+   tool's blocks (95 744), streamed == one shot at the JAX package's
+   floors, 8 channels against a float64 WOLA computed here with numpy,
+   ``istft(gain * stft(x))`` against the stage; ``"auto"`` against the
+   fastest engine; the ``stft`` tool file to file on a WAV of the same
+   signal; the ``channelizer`` tool (``--fir-method ols``, 2048-point
+   frames) with 1024 channels on one rank, and with 256 channels on one
+   rank and on 4 ranks of ``cuda:0``, those spectra against each other and
+   each against ``Channelizer.step``; ``fir_filter(method="block2")`` at
+   3001 taps, beyond B2's envelope, as tensor code with no launch; B2 on
+   65 544 rows at both precisions, bitwise the launches of at most 65 535
+   rows; CUDA-event times of each engine per tool block and one shot,
+   beside the host's enqueue time and the bound, and both tools' rates.
 
 Every phase raises on failure.  The last line of stdout is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -102,6 +118,20 @@ PREVIOUS = {
 KERNEL_NAMES = ("block2_fir", "fused_fir_resample", "halo_ring",
                 "halo_fir_fused")
 SMALL = dict(ntaps=129, cutoff=0.2, up=3, down=4, k=8, channels=8)
+#: the channelizer tool's runs in phase 7, the config's 2048-point frames
+#: through the ols FIR: its 1024 channels on one rank (983 040 samples, the
+#: step's block_multiple), then 256 channels of 4 x 983 040 on one rank and
+#: on 4 ranks, the same input twice.  Channels are cut for the pair because
+#: one rank holds about 31 GiB a 10^9 samples through the step (PERF.md)
+CZ_TOOL_ARGS = ["--fir-method", "ols", "--fft", "2048"]
+CZ_TOOL_RUNS = (("--synth", "1024", "--seconds", "20.48"),
+                ("--synth", "256", "--seconds", "81.92"),
+                ("--synth", "256", "--seconds", "81.92", "--mesh-time", "4"))
+#: config 4: streamed == one shot for the reference engine at every sample,
+#: for the product engines on the interior; a float64 WOLA on the interior
+#: (the JAX package's floors: tests/pipeline/test_chain.py
+#: TestSpectralGainStreaming, tests/ops/test_golden_cpp.py)
+STFT_STREAM_DB, STFT_INTERIOR_DB, STFT_GOLDEN_DB = 140.0, 120.0, 90.0
 #: SNR floors of a kernel against its plain version run in float64
 KERNEL_FLOOR_DB = {"highest": 130.0, "high": 75.0}
 #: all-channel-min SNR floors of the chain against scipy float64
@@ -210,6 +240,15 @@ def fold_rows(xpad, block: int, l: int):
     return xp.unfold(-1, block + l, l).reshape(b * r, block + l).contiguous()
 
 
+def load_config(name: str):
+    """``configs/<name>.json`` of this checkout as the port's ChainConfig."""
+    from llzlab_tpu_torch.utils.config import from_json
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "configs", name + ".json")) as f:
+        return from_json(f.read())
+
+
 def configs_1_and_2(dev, smi, rng, reset_launches, read_launches):
     """Phase 6: configs 1 and 2 at their published size, each from its file
     in ``configs/``, through the entry points their users call, then the
@@ -230,13 +269,6 @@ def configs_1_and_2(dev, smi, rng, reset_launches, read_launches):
     from llzlab_tpu_torch.kernels import block2_fir as bf
     from llzlab_tpu_torch.ops import fir as fir_ops
     from llzlab_tpu_torch.ops.resample import resample_output_len
-    from llzlab_tpu_torch.utils.config import from_json
-
-    root = os.path.dirname(os.path.abspath(__file__))
-
-    def config(name):
-        with open(os.path.join(root, "configs", name + ".json")) as f:
-            return from_json(f.read())
 
     def snr(ref, y):
         return min_channel_snr_db(ref[:, :y.shape[-1]], y)
@@ -248,7 +280,7 @@ def configs_1_and_2(dev, smi, rng, reset_launches, read_launches):
             raise RuntimeError(f"{what}: SNR {got_db:.1f} dB below {floor}")
 
     # ---- config 1: FIR alone, 1 x 480 000, firwin(1024, 0.25, hamming) ----
-    cfg1 = config("fir_lowpass_1ch")
+    cfg1 = load_config("fir_lowpass_1ch")
     f1 = cfg1.fir
     t1 = int(cfg1.sample_rate * cfg1.seconds)
     taps = firwin(f1.numtaps, f1.cutoff if len(f1.cutoff) > 1 else
@@ -335,7 +367,7 @@ def configs_1_and_2(dev, smi, rng, reset_launches, read_launches):
               snr(gold1, outs[method].cpu().numpy()), 80.0)
 
     # ---- config 2: resample 147/160, K = 64, beta = 8, 8 x 480 000 -------
-    cfg2 = config("resample_8ch")
+    cfg2 = load_config("resample_8ch")
     rc = cfg2.resample
     t2 = int(cfg2.sample_rate * cfg2.seconds)
     rtaps = resample_taps(rc.up, rc.down, rc.taps_per_phase,
@@ -438,6 +470,271 @@ def configs_1_and_2(dev, smi, rng, reset_launches, read_launches):
             f"block ({cfg1.channels}x{blk1}): the host takes {ms:.4f} ms to "
             f"enqueue it, the card {dev_ms:.4f} ms back to back, on {smi}")
     return launches, b2_err
+
+
+def wola_f64(x, gain, n_fft: int, hop: int, window: str):
+    """Float64 WOLA: frame, window, rfft, per-bin gain, irfft, window,
+    overlap-add frame by frame, divide by the window-square envelope;
+    ``x (C, T)`` → ``(C, n_fft + (nf − 1)·hop)``.  Numpy and scipy only:
+    phase 7's golden, independent of the port's code."""
+    import scipy.signal as ss
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    w = ss.get_window(window, n_fft, fftbins=True).astype(np.float64)
+    frames = sliding_window_view(np.asarray(x, np.float64), n_fft,
+                                 axis=-1)[..., ::hop, :] * w
+    y = np.fft.irfft(np.fft.rfft(frames, axis=-1) * gain, n_fft,
+                     axis=-1) * w
+    nf = frames.shape[-2]
+    out = np.zeros(frames.shape[:-2] + (n_fft + (nf - 1) * hop,))
+    env = np.zeros(out.shape[-1])
+    for i in range(nf):
+        out[..., i * hop:i * hop + n_fft] += y[..., i, :]
+        env[i * hop:i * hop + n_fft] += w * w
+    return out / np.maximum(env, 1e-8)
+
+
+def config_4_and_tools(dev, smi):
+    """Phase 7: config 4 at its published size through the three engines
+    of ``SpectralGainStage``, the ``stft`` and ``channelizer`` tools, and
+    kernel B2 beyond its former limits.  Returns the largest max |kernel -
+    plain| of B2 here."""
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+
+    from llzlab_tpu_torch import (Channelizer, SpectralGainStage, firwin,
+                                  istft, stft)
+    from llzlab_tpu_torch.cli import channelizer as cz_cli
+    from llzlab_tpu_torch.cli import stft as stft_cli
+    from llzlab_tpu_torch.io.wav import read_wav, write_wav
+    from llzlab_tpu_torch.kernels import block2_fir as bf
+    from llzlab_tpu_torch.ops.fir import block2_block, fir_filter
+
+    def check(what, got_db, floor):
+        log(f"[config4] {what}: {got_db:.1f} dB (floor {floor})")
+        if not got_db >= floor:
+            raise RuntimeError(f"{what}: {got_db:.1f} dB below {floor}")
+
+    # ---- config 4: 256 x 480 000, the stft tool's gain ------------------
+    cfg = load_config("stft_gain_256ch")
+    c, t, rate = cfg.channels, int(cfg.sample_rate * cfg.seconds), \
+        int(cfg.sample_rate)
+    n_fft, hop, window = cfg.stft.n_fft, cfg.stft.hop, cfg.stft.window
+    lat, bins = n_fft - hop, n_fft // 2 + 1
+    gain = np.full(bins, 10.0 ** (-6.0 / 20.0), np.float32)
+    f = np.arange(bins) * rate / n_fft
+    gain[(f >= 1000.0) & (f <= 2000.0)] = 0.0
+    blk = int(2.0 * rate) // hop * hop  # the stft tool's block
+    nblk = -(-t // blk)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((c, t), generator=gen, device=dev)
+    xp = F.pad(x, (0, nblk * blk - t))  # the tool pads its last block
+    blocks = [xp[:, i * blk:(i + 1) * blk] for i in range(nblk)]
+    x_host = x.cpu().numpy()
+    t0 = time.perf_counter()
+    golden = wola_f64(x_host[:CZ_GOLDEN_CHANNELS], gain.astype(np.float64),
+                      n_fft, hop, window)
+    glo, ghi = n_fft + lat, golden.shape[-1] - 2 * n_fft
+    log(f"[config4] config 4 ({cfg.name}): {c} x {t}, n_fft {n_fft}, hop "
+        f"{hop}, periodic {window}, gain -6 dB with a 1-2 kHz notch; "
+        f"streamed in {nblk} blocks of {blk} (the stft tool's, the last "
+        f"zero-padded); float64 WOLA of {CZ_GOLDEN_CHANNELS} channels in "
+        f"{time.perf_counter() - t0:.1f} s")
+    lo, hi = lat + n_fft, t - n_fft  # the interior, in stream samples
+
+    def run(stage, pieces):
+        st = stage.init_state((c,), device=dev)
+        outs = []
+        for piece in pieces:
+            y, st = stage.apply(piece, st)
+            outs.append(y)
+        outs.append(stage.flush(st))
+        return torch.cat(outs, -1)
+
+    times, one_ref, streamed_ref = {}, None, None
+    nf_blk, nf_one = blk // hop, nblk * blk // hop
+    for engine in ("reference", "wdft", "cwola"):
+        stage = SpectralGainStage(gain, n_fft=n_fft, hop=hop, window=window,
+                                  engine=engine)
+        one = run(stage, [xp])
+        streamed = run(stage, blocks)
+        torch.cuda.synchronize()
+        if streamed.shape != (c, nblk * blk + lat) or not (
+                bool(torch.isfinite(streamed).all())
+                and bool((streamed[:, :lat] == 0).all())):
+            raise RuntimeError(f"config 4 {engine}: bad output "
+                               f"{tuple(streamed.shape)}")
+        if engine == "reference":
+            check(f"{engine}: streamed vs one shot, every sample",
+                  device_snr_db(one[:, lat:lat + t],
+                                streamed[:, lat:lat + t]), STFT_STREAM_DB)
+            spec = stft(x, n_fft=n_fft, hop=hop, window=window)
+            y_ops = istft(spec * torch.from_numpy(gain).to(dev), n_fft=n_fft,
+                          hop=hop, window=window, length=t)
+            # up to T - n_fft: beyond it the stage's frames reach into the
+            # tool's zero padding, and istft's stop at the signal's end
+            check(f"istft(gain * stft(x)) vs the streamed stage, samples "
+                  f"[0, {t - n_fft})", device_snr_db(
+                      y_ops[:, :t - n_fft], streamed[:, lat:lat + t - n_fft]),
+                  STFT_STREAM_DB)
+            del spec, y_ops
+            one_ref, streamed_ref = one[:, :t].cpu(), streamed[:, :t].cpu()
+        else:
+            check(f"{engine}: streamed vs one shot, interior [{lo}, {hi})",
+                  device_snr_db(one[:, lo:hi], streamed[:, lo:hi]),
+                  STFT_INTERIOR_DB)
+        ys = streamed[:CZ_GOLDEN_CHANNELS, lat:lat + golden.shape[-1]]
+        check(f"{engine}: {CZ_GOLDEN_CHANNELS} channels vs float64 WOLA, "
+              f"min channel, interior", min_channel_snr_db(
+                  golden[:, glo:ghi], ys.cpu().numpy()[:, glo:ghi]),
+              STFT_GOLDEN_DB)
+        del one, streamed
+        st = stage.init_state((c,), device=dev)
+        block_ms = cuda_ms(lambda: stage.apply(blocks[1], st), iters=10)
+        enqueue_ms = host_ms(lambda: stage.apply(blocks[1], st), iters=10)
+        one_ms = cuda_ms(lambda: stage.apply(
+            xp, stage.init_state((c,), device=dev)), iters=3, warmup=1)
+        times[engine] = block_ms
+        # bounds: the input read and the output written once; the
+        # products a frame (a real FFT ~2.5 n log2 n operations, the wdft
+        # tables 2 x n x 2 bins MACs, the composed map n^2 MACs), fp32
+        fft_ops = 2 * 2.5 * n_fft * np.log2(n_fft)
+        ops = {"reference": fft_ops, "wdft": 2 * 2 * n_fft * 2 * bins,
+               "cwola": 2 * n_fft * n_fft}[engine]
+        for what, ms, nf, n_in in (
+                (f"tool block (the host enqueues it in {enqueue_ms:.3f} ms)",
+                 block_ms, nf_blk, blk),
+                ("one shot", one_ms, nf_one, nblk * blk)):
+            b, by = fir_bound_ms(ops * nf * c, 2 * 4.0 * c * n_in)
+            log(f"[time] config 4 {engine:9s} {c}x{n_in} {what}: {ms:.3f} ms "
+                f"({c * n_in / ms / 1e3:.0f} Msamples/s), bound {b:.3f} ms "
+                f"({by}) on {smi}")
+        torch.cuda.empty_cache()
+    auto = SpectralGainStage(gain, n_fft=n_fft, hop=hop).engine
+    fastest = min(times, key=times.get)
+    log(f"[config4] engine='auto' takes {auto!r}; the fastest at the tool's "
+        f"block is {fastest!r} ({times[fastest]:.3f} ms, {auto!r} "
+        f"{times[auto]:.3f} ms)")
+    if times[auto] > 1.5 * times[fastest]:
+        raise RuntimeError(f"engine='auto' takes {auto!r}, 1.5x slower than "
+                           f"{fastest!r} on this card")
+    del xp, blocks, x
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- the stft tool, file to file --------------------------------
+        wav = os.path.join(tmp, "c4.wav")
+        write_wav(wav, x_host, rate)
+        _, msps = stft_cli.main(["-i", wav, "-o", wav + ".out", "--gain-db",
+                                 "-6", "--notch", "1000", "2000"])
+        y, r = read_wav(wav + ".out")
+        if r != rate or y.shape != (c, t):
+            raise RuntimeError(f"stft tool: {y.shape} at {r} Hz")
+        same = bool(np.array_equal(y, streamed_ref.numpy()))
+        check(f"stft tool ({msps:.1f} Msamples/s file to file, its own "
+              f"clock) vs the stage's one shot, {y.shape}; bitwise the "
+              f"stage streamed in its blocks: {same}",
+              min_channel_snr_db(one_ref.numpy()[:, lat:], y[:, lat:]),
+              STFT_STREAM_DB)
+        del y, one_ref, streamed_ref, x_host
+
+        # ---- the channelizer tool: 1 rank, and 4 ranks of cuda:0 --------
+        ch = Channelizer(fir_taps=firwin(1024, 0.4, window="hamming"),
+                         fft_n=2048, fir_method="ols", device=dev)
+        specs = []
+        for run in CZ_TOOL_RUNS:
+            args = list(run) + CZ_TOOL_ARGS
+            out, mlog = (os.path.join(tmp, f"cz{len(specs)}{e}")
+                         for e in (".npz", ".jsonl"))
+            t0 = time.perf_counter()
+            cz_cli.main(["-o", out, "--metrics", mlog] + args)
+            wall = time.perf_counter() - t0
+            with open(mlog) as fh:
+                step = [json.loads(v) for v in fh if '"stage"' in v][0]
+            with np.load(out) as z:
+                spec = torch.from_numpy(z["spectra"]).to(dev)
+                if (int(z["rate"]), int(z["fft_n"])) != (rate * 147 // 160,
+                                                        2048):
+                    raise RuntimeError(f"channelizer tool: rate "
+                                       f"{int(z['rate'])}, fft_n "
+                                       f"{int(z['fft_n'])}")
+            c_in, n = int(run[1]), int(float(run[3]) * rate)
+            log(f"[time] channelizer tool {' '.join(args)}: the step "
+                f"{step['seconds']:.3f} s ({step['msps']:.0f} Msamples/s, "
+                f"the step's first call), file to file {wall:.1f} s "
+                f"({c_in * n / wall / 1e6:.1f} Msamples/s) with the "
+                f"synthesis of its input, on {smi}")
+            # the tool's noise: its first rows are the first draws of the
+            # seed, and it keeps a multiple of the step's block_multiple
+            m = ch.block_multiple() * (4 if "--mesh-time" in run else 1)
+            x8 = np.random.default_rng(0).standard_normal(
+                (CZ_GOLDEN_CHANNELS, n)).astype(np.float32)[:, :n // m * m]
+            got, _ = ch.step(torch.from_numpy(x8).to(dev),
+                             ch.init_state(CZ_GOLDEN_CHANNELS))
+            check(f"channelizer tool {' '.join(run)}, spectra "
+                  f"{tuple(spec.shape)}, vs Channelizer.step on its first "
+                  f"{CZ_GOLDEN_CHANNELS} channels",
+                  device_snr_db(got, spec[:CZ_GOLDEN_CHANNELS]),
+                  SHARDED_FLOOR_DB)
+            specs.append(spec)
+            del got, x8
+        if specs[1].shape != specs[2].shape:
+            raise RuntimeError(f"channelizer tool: {tuple(specs[1].shape)} "
+                               f"on 1 rank, {tuple(specs[2].shape)} on 4")
+        check(f"channelizer tool, 4 ranks vs 1 rank, spectra "
+              f"{tuple(specs[1].shape)}", device_snr_db(specs[1], specs[2]),
+              SHARDED_FLOOR_DB)
+        del specs, spec
+        torch.cuda.empty_cache()
+
+    # ---- fir_filter(block2) beyond B2's envelope: tensor code ----------
+    taps = firwin(3001, 0.2)
+    block = block2_block(len(taps))
+    xa = torch.randn((2, 9000), generator=gen, device=dev)
+    before = bf.block2_fir_cuda.launches
+    ya = fir_filter(xa, taps, method="block2")
+    if bf.block2_fir_cuda.launches != before or bf.cuda_supports(
+            2, len(taps), block, 9000):
+        raise RuntimeError("fir_filter(block2) at 3001 taps launched B2")
+    ref = bf.block2_fir_plain(F.pad(xa, (block, 0)).double(), taps, block,
+                              "highest")
+    check("fir_filter(block2) at 3001 taps on the card, no B2 launch, vs "
+          "float64", device_snr_db(ref, ya), 120.0)
+    check("the same vs its CPU run", device_snr_db(
+        fir_filter(xa.cpu(), taps, method="block2").to(dev), ya), 120.0)
+
+    # ---- B2 on 65 536 + 8 rows of 1152 samples -------------------------
+    taps = firwin(NTAPS, CUTOFF, window="hamming")
+    block = block2_block(NTAPS)
+    rows = 65536 + 8
+    xr = torch.randn((rows, block + 1152), generator=gen, device=dev)
+    err = 0.0
+    for mode in MODES:
+        chunks = bf.row_chunks(rows, mode)
+        before = bf.block2_fir_cuda.launches
+        y = bf.block2_fir_cuda(xr, taps, block, mode)
+        if bf.block2_fir_cuda.launches != before + len(chunks):
+            raise RuntimeError(f"block2_fir {mode}: {rows} rows counted "
+                               f"{bf.block2_fir_cuda.launches - before} "
+                               f"launches, ran {len(chunks)}")
+        for r0, r1 in ((0, bf.MAX_ROWS), (bf.MAX_ROWS, rows)):
+            if not torch.equal(y[r0:r1], bf.block2_fir_cuda(
+                    xr[r0:r1], taps, block, mode)):
+                raise RuntimeError(f"block2_fir {mode}: rows {r0}:{r1} of "
+                                   f"one call != their own launch")
+        tail = xr[-64:]
+        err = max(err, float((y[-64:] - bf.block2_fir_plain(
+            tail, taps, block, mode)).abs().max()))
+        check(f"block2_fir {mode} on {rows} rows in {len(chunks)} "
+              f"launch(es), bitwise launches of <= {bf.MAX_ROWS} rows; last "
+              f"64 rows vs plain f64", device_snr_db(bf.block2_fir_plain(
+                  tail.double(), taps, block, "highest"), y[-64:]),
+              KERNEL_FLOOR_DB[mode])
+    del xr, y
+    torch.cuda.empty_cache()
+    return err
 
 
 def main() -> int:
@@ -1126,6 +1423,10 @@ def main() -> int:
     by_path["block2_fir"].update(config_launches)
     launches["block2_fir"] += sum(config_launches.values())
     errors["block2_fir"] = max(errors["block2_fir"], err)
+
+    # ---- phase 7: config 4, the stft and channelizer tools, B2's limits --
+    errors["block2_fir"] = max(errors["block2_fir"],
+                               config_4_and_tools(dev, smi))
     log(f"[memory] peak device memory allocated in this run: "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
 

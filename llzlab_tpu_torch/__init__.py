@@ -14,14 +14,16 @@ Layering:
     pipeline/ — chain composition + streaming
     chains/   — the channelizer, on one device and sharded over time
     utils/    — checkpoint/resume, configs, metrics
-    io/, cli/ — WAV I/O and the ``fir`` and ``resample`` tools
+    io/, cli/ — WAV I/O and the ``fir``, ``resample``, ``stft`` and
+              ``channelizer`` tools
 
 Ported so far: FIR design (window, frequency sampling, Kaiser, least
 squares, minimum phase, Remez) and filtering (block2 on any channel
 count, overlap-save, direct, im2col), polyphase, FFT and decimating
-resampling, the fused FIR→resample step, the FFT entry points, the
-channelizer with its time-sharded step, and the ``fir`` and ``resample``
-tools.
+resampling, the fused FIR→resample step, the FFT entry points, STFT /
+iSTFT and the spectral-gain stage (config 4), the channelizer with its
+time-sharded step, and the ``fir``, ``resample``, ``stft`` and
+``channelizer`` tools.
 """
 
 __version__ = "0.1.0"
@@ -35,6 +37,9 @@ from llzlab_tpu_torch.ops import (  # noqa: F401
     fir_resample,
     firls,
     minimum_phase,
+    get_window,
+    stft,
+    istft,
 )
 # imported from the submodule, not llzlab_tpu_torch.ops, so the scipy-named
 # function never shadows the ops.resample module
@@ -64,5 +69,7 @@ from llzlab_tpu_torch.pipeline import (  # noqa: F401
     FIRStage,
     ResampleStage,
     FusedFirResampleStage,
+    SpectralGainStage,
+    FFTStage,
     LambdaStage,
 )

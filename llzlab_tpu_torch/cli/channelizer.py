@@ -1,0 +1,112 @@
+"""Wideband channelizer tool, the flagship chain (BASELINE.json:11) as a
+command (port of ``llzlab_tpu/cli/channelizer.py``).
+
+    python -m llzlab_tpu_torch.cli.channelizer -i wide.wav -o spec.npz \
+        [--fft 2048] [--mesh-time N] [--cpu]
+
+Reads a multichannel WAV (or synthesises ``--synth`` channels of noise),
+splits time over a 1-D mesh of ranks, runs the FIR → resample → FFT chain
+(``Channelizer.sharded_step``) and writes the spectra as an ``.npz``
+(``spectra``, ``rate``, ``fft_n``), as the JAX package's tool does.
+
+The mesh: one rank per visible card by default (one on a machine with one
+card); ``--mesh-time N`` puts N ranks on the cards, dealt out in equal
+runs; ``--cpu`` runs a mesh of CPU ranks (one, or ``--mesh-time``).  The
+port's sharded step takes a time axis only, so ``--mesh-channel`` above 1
+raises ``NotImplementedError`` (ROADMAP queue A, slice 9).
+"""
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--input", "-i", default=None)
+    p.add_argument("--output", "-o", required=True)
+    p.add_argument("--synth", type=int, default=None,
+                   help="synthesise N channels of noise instead of reading")
+    p.add_argument("--seconds", type=float, default=2.0)
+    p.add_argument("--rate", type=int, default=48000)
+    p.add_argument("--fft", type=int, default=2048)
+    p.add_argument("--fir-taps", type=int, default=1024)
+    p.add_argument("--fir-method", default="ols", choices=["ols", "direct"])
+    p.add_argument("--mesh-channel", type=int, default=None)
+    p.add_argument("--mesh-time", type=int, default=None)
+    p.add_argument("--cpu", action="store_true")
+    p.add_argument("--metrics", default=None)
+    args = p.parse_args(argv)
+
+    import torch
+
+    from llzlab_tpu_torch.chains.channelizer import Channelizer
+    from llzlab_tpu_torch.io.wav import read_wav
+    from llzlab_tpu_torch.ops.fir import firwin
+    from llzlab_tpu_torch.parallel.mesh import (TIME_AXIS, DspMesh,
+                                                gather_time, shard_time)
+    from llzlab_tpu_torch.runtime.platform import require_cuda
+    from llzlab_tpu_torch.utils.metrics import MetricsLogger
+
+    if args.mesh_channel is not None and args.mesh_channel > 1:
+        raise NotImplementedError(
+            "--mesh-channel above 1: the port's sharded step takes a 1-D "
+            f"({TIME_AXIS!r},) mesh; meshes with a channel axis are ROADMAP "
+            "queue A, slice 9")
+    log = MetricsLogger(args.metrics)
+
+    if args.input:
+        x, rate = read_wav(args.input)
+    else:
+        c = args.synth or 8
+        rng = np.random.default_rng(0)
+        x = rng.standard_normal(
+            (c, int(args.seconds * args.rate))
+        ).astype(np.float32)
+        rate = args.rate
+
+    if args.cpu:
+        devices = ["cpu"] * (args.mesh_time or 1)
+    else:
+        require_cuda()
+        count = torch.cuda.device_count()
+        n = args.mesh_time or count
+        devices = [torch.device("cuda", i * count // n) for i in range(n)]
+    mesh = DspMesh(devices, (TIME_AXIS,))
+    chan = Channelizer(
+        fir_taps=firwin(args.fir_taps, 0.4, window="hamming"),
+        fft_n=args.fft,
+        fir_method=args.fir_method,
+        device=mesh.ranks[0].device,
+    )
+    nt = len(mesh)
+    m = chan.block_multiple() * nt
+    c, t = x.shape
+    t_use = (t // m) * m
+    if t_use == 0:
+        print(f"input too short: need ≥ {m} samples", file=sys.stderr)
+        sys.exit(1)
+    x = x[:, :t_use]
+    log.event("start", channels=c, samples=t_use, mesh=f"1x{nt}",
+              backend=mesh.ranks[0].device.type)
+
+    parts = shard_time(torch.from_numpy(x), mesh)
+    state = chan.init_state(c)
+    step = chan.sharded_step(mesh)
+    mesh.synchronize()
+    t0 = time.perf_counter()
+    spec, state = step(parts, state)
+    mesh.synchronize()
+    dt = time.perf_counter() - t0
+    log.stage("channelizer", c * t_use, dt)
+    spec = gather_time(spec, mesh, dim=1).cpu().numpy()
+    np.savez(args.output, spectra=spec, rate=rate * 147 // 160,
+             fft_n=args.fft)
+    log.event("done", out=args.output, shape=list(spec.shape))
+    return args.output
+
+
+if __name__ == "__main__":
+    main()

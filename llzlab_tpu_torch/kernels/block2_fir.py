@@ -50,9 +50,10 @@ import torch.nn.functional as F
 
 from llzlab_tpu_torch.kernels import _build
 
-__all__ = ["supports", "cuda_supports", "band_k", "bf16_hi_lo", "tap_tables",
-           "plain_tables", "mma_rows", "toeplitz_tile", "mma_plan", "SMEM_MAX",
-           "block2_fir", "block2_fir_cuda", "block2_fir_plain"]
+__all__ = ["supports", "cuda_supports", "row_chunks", "band_k", "bf16_hi_lo",
+           "tap_tables", "plain_tables", "mma_rows", "toeplitz_tile",
+           "mma_plan", "SMEM_MAX", "block2_fir", "block2_fir_cuda",
+           "block2_fir_plain"]
 
 MODES = ("high", "highest")
 
@@ -70,7 +71,8 @@ def supports(channels: int, ntaps: int, block: int) -> bool:
     )
 
 
-#: rows of one launch: the grid's y extent at "highest"
+#: rows of one "highest" launch: the grid's y extent (one block per
+#: (run, row)); more rows go out in launches of at most this many
 MAX_ROWS = 65535
 
 
@@ -78,10 +80,21 @@ def cuda_supports(rows: int, ntaps: int, block: int, t: int) -> bool:
     """Shape envelope of kernel B2: any row count, ``block`` a multiple of
     128 with ``ntaps − 1 ≤ block ≤ 2048``, and some outputs.  (The JAX
     kernel's ``rows % 8`` is its matrix unit's row tile; at "high" this
-    kernel walks (row, pass) units and at "highest" its grid is one block
-    per (run, row), so no row count needs padding.)"""
-    return (1 <= rows <= MAX_ROWS and block % 128 == 0
+    kernel walks (row, pass) units, and at "highest" its grid is one block
+    per (run, row), launched over :func:`row_chunks` of at most
+    ``MAX_ROWS`` rows, so no row count needs padding or a limit.)"""
+    return (rows >= 1 and block % 128 == 0
             and ntaps - 1 <= block <= 2048 and t > 0)
+
+
+def row_chunks(rows: int, mode: str):
+    """``[(first, end), …]``: the rows of each launch of kernel B2.  At
+    "high" one launch takes every row (its grid walks (row, pass) units);
+    at "highest" the grid's y extent is the row, so launches of
+    ``MAX_ROWS`` rows at most.  Each row's outputs do not depend on the
+    launch it is in."""
+    step = rows if mode == "high" else MAX_ROWS
+    return [(r, min(r + step, rows)) for r in range(0, rows, max(step, 1))]
 
 
 def _w_matrix(taps: np.ndarray, block: int) -> np.ndarray:
@@ -268,7 +281,8 @@ def blocks_per_sm(ntaps: int) -> int:
 
 def block2_fir_cuda(xpad: torch.Tensor, taps, block: int,
                     mode: str = "high") -> torch.Tensor:
-    """Launch kernel B2 on ``torch.cuda.current_stream()``.  Streamed calls
+    """Launch kernel B2 on ``torch.cuda.current_stream()``, once per
+    :func:`row_chunks` chunk (``.launches`` counts each).  Streamed calls
     equal one shot bitwise for cuts at multiples of 8 samples ("high") or
     anywhere ("highest"); see the module docstring."""
     taps = np.asarray(taps, np.float64)
@@ -286,21 +300,22 @@ def block2_fir_cuda(xpad: torch.Tensor, taps, block: int,
     t = tp - block
     if not cuda_supports(b, ntaps, block, t):
         raise ValueError(
-            f"block2 kernel envelope: 1 ≤ rows ≤ {MAX_ROWS}, block % 128 == "
-            f"0, ntaps − 1 ≤ block ≤ 2048, T > 0 (got rows={b}, "
-            f"ntaps={ntaps}, block={block}, T={t}); above 2049 taps use "
-            f"fir_filter(method='ols')")
+            f"block2 kernel envelope: rows ≥ 1, block % 128 == 0, ntaps − 1 "
+            f"≤ block ≤ 2048, T > 0 (got rows={b}, ntaps={ntaps}, "
+            f"block={block}, T={t}); above 2049 taps fir_filter(method="
+            f"'block2') runs tensor code, and 'ols' is faster")
     lib = _build.load("block2_fir", _declare)
     with torch.cuda.device(xpad.device):
         tabs = tap_tables(taps, mode, xpad.device)
         y = torch.empty((b, t), dtype=torch.float32, device=xpad.device)
-        rc = lib.block2_fir_launch(
-            xpad.data_ptr(), tabs[0].data_ptr(),
-            tabs[1].data_ptr() if mode == "high" else None, y.data_ptr(),
-            b, t, block, ntaps, int(mode == "high"),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "block2_fir")
-    block2_fir_cuda.launches += 1
+        for r0, r1 in row_chunks(b, mode):
+            rc = lib.block2_fir_launch(
+                xpad[r0:r1].data_ptr(), tabs[0].data_ptr(),
+                tabs[1].data_ptr() if mode == "high" else None,
+                y[r0:r1].data_ptr(), r1 - r0, t, block, ntaps,
+                int(mode == "high"), torch.cuda.current_stream().cuda_stream)
+            _build.check(rc, "block2_fir")
+            block2_fir_cuda.launches += 1
     return y
 
 

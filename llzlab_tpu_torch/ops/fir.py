@@ -7,12 +7,16 @@ filtering engines:
 
 * ``block2``: direct convolution over blocks of ``block2_block(ntaps)``
   samples, where every output block depends on its own input block and
-  the one before it.  A CUDA tensor runs kernel B2
-  (``kernels/block2_fir.py``); a CPU tensor runs that kernel's plain
+  the one before it.  Inside kernel B2's envelope
+  (``block2_fir.cuda_supports``: a block of at most 2048) a CUDA tensor
+  runs B2 (``kernels/block2_fir.py``) and a CPU tensor that kernel's plain
   PyTorch version.  Any channel count is one launch on the rows as they
   are: the JAX package's fold of fewer than 8 channels into rows fills the
   TPU's 8-row matrix tile, and on the card it gave bitwise the same output
-  more slowly (``PERF.md``), so it is not ported.
+  more slowly (``PERF.md``), so it is not ported.  Outside the envelope
+  (more than 2049 taps) both devices run the JAX package's two-product
+  engine (``_block2_filter``) as tensor code, fp32, with the same block
+  and history.
 * ``ols``: overlap-save through ``torch.fft`` (``ops/transform.py``).
 * ``direct``: one ``conv1d`` over the history-padded signal.
 * ``im2col``: one dense product of slabs of ``256 + ntaps − 1`` inputs with
@@ -368,6 +372,23 @@ def _ols_filter(xpad: torch.Tensor, taps: torch.Tensor, nfft: int,
     return y.reshape(b, nframes * hop)[:, :t]
 
 
+def _block2_engine(taps: np.ndarray, block: int, mode: str):
+    """Kernel B2 (its plain version on a CPU tensor) inside B2's envelope,
+    else B2's plain version at "highest" on either device: the JAX
+    package's two-product engine ``y_j = x_j @ A + x_{j−1} @ Bm`` in fp32
+    with TF32 off.  The route is chosen from the shapes before any
+    launch."""
+    ntaps = len(taps)
+
+    def run(xpad: torch.Tensor) -> torch.Tensor:
+        if _bf.cuda_supports(xpad.shape[0], ntaps, block,
+                             xpad.shape[-1] - block):
+            return _bf.block2_fir(xpad, taps, block, mode=mode)
+        return _bf.block2_fir_plain(xpad, taps, block, "highest")
+
+    return run
+
+
 def _direct_filter(xpad: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """Direct convolution on ``(B, ntaps − 1 + T)`` pre-padded input
     (``conv1d`` correlates, so the taps are flipped)."""
@@ -476,12 +497,15 @@ def fir_filter(
     package; "ols", "direct" and "im2col" run f32.
 
     With "block2" a CUDA tensor runs kernel B2 once on all channels, a CPU
-    tensor its plain version.  On the card B2 takes any channel count up to
-    2049 taps and raises beyond.  Streamed
-    == one shot bitwise there for splits at multiples of 8 samples at
-    "high" (the tensor-core sum order depends on the output index mod 8 of
-    a call), which covers every split at a multiple of the block; at
-    "highest" for any split.
+    tensor its plain version, up to 2049 taps and on any channel count.
+    Streamed == one shot bitwise there for splits at multiples of 8
+    samples at "high" (the tensor-core sum order depends on the output
+    index mod 8 of a call), which covers every split at a multiple of the
+    block; at "highest" for any split.  Beyond 2049 taps "block2" runs
+    B2's plain version at fp32 ("highest") on either device, the JAX
+    package's two-product engine; streamed equals one shot there to f32
+    rounding, not bit for bit (the library product's sum order may follow
+    the number of blocks).
     """
     taps_host = np.asarray(
         taps.detach().cpu().numpy() if isinstance(taps, torch.Tensor)
@@ -497,10 +521,8 @@ def fir_filter(
         raise ValueError(f"nfft={nfft} too small for ntaps={ntaps}")
     hlen = fir_state_len(ntaps, nfft, method)
     if method == "block2":
-        mode = kernel_mode()
-        return _filter(
-            x, zi, hlen, hlen - (ntaps - 1), return_zf,
-            lambda xpad: _bf.block2_fir(xpad, taps_host, hlen, mode=mode))
+        return _filter(x, zi, hlen, hlen - (ntaps - 1), return_zf,
+                       _block2_engine(taps_host, hlen, kernel_mode()))
     if method == "im2col":
         tap_mat = _toeplitz_matrix(taps_host, IM2COL_BLOCK, x.device)
         return _filter(x, zi, hlen, 0, return_zf,

@@ -8,6 +8,9 @@ matrix-product FFT engines shaped for the TPU's matrix unit; the port has
 none of them, so every accepted ``method`` names the same ``torch.fft``
 call and the values agree.
 
+``precision_scope`` and ``matmul_precision_name`` are re-exported from
+``runtime/platform.py``, where the port reads the precision name.
+
 ``rfft_pair`` returns the (re | im) pair layout ``(..., n+2)`` f32 that the
 channelizer's ``spec_format="pair"`` emits; ``pair_to_complex`` packs it
 into complex64.
@@ -19,7 +22,13 @@ from typing import Optional
 
 import torch
 
-__all__ = ["fft", "ifft", "rfft", "irfft", "rfft_pair", "pair_to_complex"]
+from llzlab_tpu_torch.runtime.platform import (  # noqa: F401
+    matmul_precision_name,
+    precision_scope,
+)
+
+__all__ = ["fft", "ifft", "rfft", "irfft", "rfft_pair", "pair_to_complex",
+           "precision_scope", "matmul_precision_name"]
 
 METHODS = ("auto", "xla", "matmul")
 

@@ -6,5 +6,7 @@ from llzlab_tpu_torch.pipeline.chain import (  # noqa: F401
     FIRStage,
     ResampleStage,
     FusedFirResampleStage,
+    SpectralGainStage,
+    FFTStage,
     LambdaStage,
 )

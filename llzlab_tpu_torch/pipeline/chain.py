@@ -10,7 +10,8 @@ device of the block.  States are tuples of tensors, created on the device
 the caller names.
 
 Stages ported so far: ``FIRStage`` (every engine of ops/fir.py),
-``ResampleStage``, ``FusedFirResampleStage`` and ``LambdaStage``.
+``ResampleStage``, ``FusedFirResampleStage``, ``SpectralGainStage``,
+``FFTStage`` and ``LambdaStage``.  ``SOSStage`` comes with the IIR slice.
 """
 
 from __future__ import annotations
@@ -25,12 +26,17 @@ from llzlab_tpu_torch.kernels import fused_fir_resample as _ff
 from llzlab_tpu_torch.ops import fir as _fir
 from llzlab_tpu_torch.ops import fused_chain as _fc
 from llzlab_tpu_torch.ops import resample as _resample
+from llzlab_tpu_torch.ops import spectral as _stft
+from llzlab_tpu_torch.ops import transform as _fft
+from llzlab_tpu_torch.runtime.platform import precision_scope
 
 __all__ = [
     "Stage",
     "FIRStage",
     "ResampleStage",
     "FusedFirResampleStage",
+    "SpectralGainStage",
+    "FFTStage",
     "LambdaStage",
     "Chain",
 ]
@@ -182,6 +188,184 @@ class FusedFirResampleStage(Stage):
         )
 
 
+#: the engines of SpectralGainStage
+SPECTRAL_ENGINES = ("reference", "wdft", "cwola")
+
+
+class SpectralGainStage(Stage):
+    """STFT → per-bin gain → iSTFT (config 4, BASELINE.json:10).
+
+    ``gain`` is an ``(n_fft//2+1,)`` array, or a callable mapping the
+    complex spectrum ``(..., nf, bins)`` to a (broadcastable) gain.
+
+    Streaming is exact at every sample: the stage carries the analysis
+    lookback (``overlap = n_fft − hop`` input samples), the synthesis
+    overlap-add tail and the window-square envelope tail, so streamed
+    blocks equal one ``istft(gain·stft(x))``.  A frame is synthesised once
+    all its samples have arrived, so the stage lags by ``latency =
+    overlap`` samples: block ``b`` (length T) emits one-shot samples
+    ``[b·T − overlap, (b+1)·T − overlap)``, the stream leads with
+    ``overlap`` zeros, and :meth:`flush` gives the last ``overlap``.
+
+    State: ``{"x_hist", "ola"}`` ``(..., overlap)`` f32, ``"env"``
+    ``(overlap,)`` f32 and ``"pos"``, a 0-dim int32 tensor counting the
+    input samples so far, saturated at ``overlap`` (it masks the zero-pad
+    frames at the stream's start).  Its leaves in sorted key order (env,
+    ola, pos, x_hist) are the JAX package's, so a state saved by either
+    resumes in the other (``utils/checkpoint.py``).
+
+    Engines (``engine=``):
+
+    * ``"reference"``: frame → window → ``rfft`` (cuFFT) → gain → ``irfft``
+      → window → overlap-add;
+    * ``"wdft"``: the window folded into dense rDFT tables
+      (``ops/spectral.windowed_rdft`` / ``windowed_irdft_ola``), two
+      products a frame; the engine a callable gain needs among the two
+      product engines;
+    * ``"cwola"``: for a static gain the frame map analysis → gain →
+      synthesis composed into one ``(n_fft, n_fft)`` matrix
+      (``ops/spectral.composed_wola``); a callable gain raises;
+    * ``"auto"``: ``"reference"``, on every device.  The JAX package takes
+      cwola / wdft on a TPU, where its FFT is a matrix product; on the
+      H100 the card's times decide (``PERF.md``, config 4): cuFFT's
+      reference engine is the fastest of the three there.
+
+    ``precision`` pins the precision name (``precision_scope``) for the
+    stage's work (default "highest"; ``None`` inherits the environment).
+    Its products and FFTs are fp32 at every name, so the name reaches
+    only a hand kernel that a callable gain might run.
+    """
+
+    def __init__(
+        self,
+        gain,
+        *,
+        n_fft: int = 2048,
+        hop: Optional[int] = None,
+        window: str = "hann",
+        method: str = "auto",
+        precision: Optional[str] = "highest",
+        engine: str = "auto",
+    ):
+        self.gain = gain if callable(gain) else np.asarray(gain, np.float32)
+        self.n_fft = n_fft
+        self.hop = hop or n_fft // 4
+        if self.n_fft % self.hop:
+            raise ValueError("hop must divide n_fft")
+        self.window = window
+        self.method = method
+        self.precision = precision
+        if engine == "auto":
+            engine = "reference"
+        if engine not in SPECTRAL_ENGINES:
+            raise ValueError(f"unknown engine {engine!r}; one of "
+                             f"{('auto',) + SPECTRAL_ENGINES}")
+        if engine == "cwola" and callable(self.gain):
+            raise ValueError(
+                "engine='cwola' composes a STATIC gain into the frame "
+                "map; a callable gain needs engine='wdft'")
+        if engine != "reference" and n_fft % 2:
+            raise ValueError(
+                f"engine={engine!r} needs an even n_fft, got {n_fft}: its "
+                "dense rDFT tables have a Nyquist bin")
+        self.engine = engine
+        self.block_multiple = self.hop
+        #: output samples lag input samples by this much (WOLA lookback)
+        self.latency = self.n_fft - self.hop
+        self._gain_dev = {}
+
+    def init_state(self, batch_shape, *, device, dtype=torch.float32):
+        ov = self.latency
+        f32 = dict(dtype=torch.float32, device=device)
+        return {
+            "x_hist": torch.zeros(tuple(batch_shape) + (ov,), **f32),
+            "ola": torch.zeros(tuple(batch_shape) + (ov,), **f32),
+            "env": torch.zeros((ov,), **f32),
+            "pos": torch.zeros((), dtype=torch.int32, device=device),
+        }
+
+    def _gain_on(self, device) -> torch.Tensor:
+        """The static gain as f32 on ``device``, copied there once."""
+        key = str(device)
+        if key not in self._gain_dev:
+            self._gain_dev[key] = torch.from_numpy(self.gain).to(device)
+        return self._gain_dev[key]
+
+    def _apply_gain(self, spec):
+        if callable(self.gain):
+            return spec * self.gain(spec)
+        return spec * self._gain_on(spec.device)
+
+    def apply(self, x, state):
+        ov = self.latency
+        t = x.shape[-1]
+        if t % self.hop:
+            raise ValueError(f"block length {t} not a multiple of hop")
+        dev = x.device
+        w = _stft.window_tensor(self.window, self.n_fft, dev)
+        ext = torch.cat([state["x_hist"], x.to(torch.float32)], dim=-1)
+        nf = t // self.hop
+        # Early stream blocks: ext leads with zero-pad frames (global frame
+        # start < 0) that the one-shot run never sees; mask them.  Frame k
+        # starts at global input position pos + k·hop − ov.
+        starts = torch.arange(nf, device=dev) * self.hop
+        mask = (state["pos"] + starts >= ov).to(torch.float32)
+        with precision_scope(self.precision):
+            if self.engine == "cwola":
+                buf = _stft.composed_wola(
+                    ext, mask, self.n_fft, self.hop, self.window,
+                    np.asarray(self.gain, np.float64), prec=self.precision)
+            elif self.engine == "wdft":
+                spec = _stft.windowed_rdft(ext, self.n_fft, self.hop,
+                                           self.window, prec=self.precision)
+                # synthesis masking commutes with the linear inverse
+                buf = _stft.windowed_irdft_ola(
+                    self._apply_gain(spec) * mask[:, None], self.n_fft,
+                    self.hop, self.window, prec=self.precision)
+            else:
+                frames = _stft.frame(ext, self.n_fft, self.hop) * w
+                spec = _fft.rfft(frames, self.n_fft, method=self.method)
+                synth = _fft.irfft(self._apply_gain(spec), self.n_fft,
+                                   method=self.method) * w
+                buf = _stft.overlap_add(synth * mask[:, None], self.hop)
+        env = _stft.overlap_add((w * w) * mask[:, None], self.hop)
+        buf[..., :ov] += state["ola"]
+        env[:ov] += state["env"]
+        y = (buf[..., :t] / torch.clamp(env[:t], min=1e-8)).to(x.dtype)
+        new_state = {
+            "x_hist": ext[..., t:].clone(),
+            "ola": buf[..., t:].clone(),
+            "env": env[t:].clone(),
+            "pos": torch.clamp(state["pos"] + t, max=ov).to(torch.int32),
+        }
+        return y, new_state
+
+    def flush(self, state, dtype=torch.float32):
+        """The final ``overlap`` output samples once the stream ends."""
+        return (state["ola"] / torch.clamp(state["env"], min=1e-8)).to(dtype)
+
+
+class FFTStage(Stage):
+    """Frame the stream into n-point blocks and emit their spectra
+    (the channelizer's back end: ``(..., T)`` → complex ``(..., T//n,
+    n//2+1)``)."""
+
+    def __init__(self, n: int, *, window=None, method: str = "auto"):
+        self.n = n
+        self.window = window
+        self.method = method
+        self.block_multiple = n
+
+    def apply(self, x, state):
+        t = x.shape[-1]
+        nfr = t // self.n
+        xf = x[..., : nfr * self.n].reshape(tuple(x.shape[:-1])
+                                            + (nfr, self.n))
+        if self.window is not None:
+            xf = xf * _stft.window_tensor(self.window, self.n, x.device)
+        return _fft.rfft(xf, self.n, method=self.method), state
+
+
 class LambdaStage(Stage):
     """Stateless elementwise stage from a plain function."""
 
@@ -242,14 +426,15 @@ class Chain:
                                              dtype=x.dtype))
         return y
 
-    def stream(self, blocks, batch_shape=None):
+    def stream(self, blocks, batch_shape=None, dtype=torch.float32):
         """Generator: yield processed blocks, carrying state (created on
-        the device of the first block)."""
+        the device of the first block, in ``dtype`` where a stage's state
+        follows it)."""
         state = None
         for blk in blocks:
             if state is None:
                 bs = batch_shape if batch_shape is not None else blk.shape[:-1]
-                state = self.init_state(bs, device=blk.device)
+                state = self.init_state(bs, device=blk.device, dtype=dtype)
             y, state = self.apply(blk, state)
             yield y
 

@@ -5,10 +5,14 @@ Counterpart of ``llzlab_tpu/runtime/platform.py`` (device bootstrap) and
 
 * The port never picks a device in silence: callers name it, and
   :func:`require_cuda` raises where a GPU is needed and missing.
-* Precision names are those of the JAX package, read from
+* Precision names are those of the JAX package, read from a
+  :func:`precision_scope` around the call, else from
   ``LLZ_MATMUL_PRECISION`` (default ``highest``).  The kernels take
   ``"highest"`` (fp32) or ``"high"`` (explicit bf16x3); ``"default"``
-  maps to ``"high"``, as in the JAX package's kernel dispatch.
+  maps to ``"high"``, as in the JAX package's kernel dispatch.  The name
+  selects what the hand kernels compute, and nothing else: the port's
+  plain ``torch.matmul`` products run fp32 with TF32 off at every name
+  (the JAX package's ``high`` also lowers XLA's einsums to bf16x3).
 * A ``highest`` result must never pass through TF32, so both of PyTorch's
   TF32 switches are pinned off when the port is imported (they default to
   on for cuDNN convolutions).
@@ -16,17 +20,23 @@ Counterpart of ``llzlab_tpu/runtime/platform.py`` (device bootstrap) and
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import os
 from typing import Optional
 
 import torch
 
-__all__ = ["require_cuda", "matmul_precision_name", "kernel_mode"]
+__all__ = ["require_cuda", "matmul_precision_name", "kernel_mode",
+           "precision_scope"]
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 _MODES = {"highest": "highest", "high": "high", "default": "high"}
+#: the name a :func:`precision_scope` pins, per thread and task
+_OVERRIDE: contextvars.ContextVar = contextvars.ContextVar(
+    "llz_matmul_precision", default=None)
 
 
 def require_cuda() -> torch.device:
@@ -39,13 +49,36 @@ def require_cuda() -> torch.device:
 
 
 def matmul_precision_name() -> str:
-    """Resolved precision name ("highest" | "high" | "default")."""
-    name = os.environ.get("LLZ_MATMUL_PRECISION", "highest").lower()
+    """Resolved precision name ("highest" | "high" | "default"): the
+    innermost :func:`precision_scope`'s, else ``LLZ_MATMUL_PRECISION``'s."""
+    name = (_OVERRIDE.get()
+            or os.environ.get("LLZ_MATMUL_PRECISION", "highest")).lower()
     if name not in _MODES:
         raise ValueError(
-            f"LLZ_MATMUL_PRECISION must be one of highest|high|default, "
-            f"got {name!r}")
+            f"LLZ_MATMUL_PRECISION/precision_scope must be one of "
+            f"highest|high|default, got {name!r}")
     return name
+
+
+@contextlib.contextmanager
+def precision_scope(name: Optional[str]):
+    """Pin :func:`matmul_precision_name` (so :func:`kernel_mode`, which
+    the kernel wrappers read) to ``name`` for the enclosed calls; ``None``
+    inherits the environment's.  A stage with its own accuracy budget
+    (``SpectralGainStage``) is so never degraded by a process-wide
+    ``LLZ_MATMUL_PRECISION=high``.  The port runs eagerly, so the scope
+    holds while the enclosed work is queued; plain ``torch.matmul``
+    products are fp32 with TF32 off whatever the name."""
+    if name is None:
+        yield
+        return
+    if name.lower() not in _MODES:
+        raise ValueError(f"precision_scope: unknown precision {name!r}")
+    token = _OVERRIDE.set(name.lower())
+    try:
+        yield
+    finally:
+        _OVERRIDE.reset(token)
 
 
 def kernel_mode(precision: Optional[str] = None) -> str:

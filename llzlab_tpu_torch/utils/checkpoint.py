@@ -104,9 +104,11 @@ def load_state(path: str, like=None, *, device="cpu"):
 
 def from_reference(state, device):
     """A JAX streaming state, handed over as numpy arrays, as the port's
-    state on ``device``: a chain's tuple (``None`` for stateless stages), or
-    a channelizer's ``(fir_state, rs_state)`` pair, whose second leaf is the
-    ``(C, 0)`` placeholder with the fused engine.  The structure is kept."""
+    state on ``device``: a chain's tuple (``None`` for stateless stages,
+    a dict for ``SpectralGainStage``, whose 0-dim int32 ``pos`` keeps its
+    dtype), or a channelizer's ``(fir_state, rs_state)`` pair, whose second
+    leaf is the ``(C, 0)`` placeholder with the fused engine.  The
+    structure is kept."""
     if state is None:
         return None
     if isinstance(state, (tuple, list)):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where configs 1 and 2 of the PyTorch/CUDA port spend their time on the
-GPU: device time against host time.
+"""Where configs 1, 2 and 4 of the PyTorch/CUDA port spend their time on
+the GPU: device time against host time.
 
 Config 1 (``configs/fir_lowpass_1ch.json``: 1 x 480 000, 1024 taps) and
 config 2 (``configs/resample_8ch.json``: 8 x 480 000, 147/160) are small
@@ -13,8 +13,11 @@ Paths: kernel B2 on the one row (what ``fir_filter`` launches), on the
 rows of the JAX package's low-channel fold (L = 1024; ``chip_smoke.py``
 ``fold_rows``), and the fold with its framing, ``FIRStage.apply`` at the
 ``fir`` tool's block of 95 232 samples, ``fir_filter`` with ols, direct and
-im2col, and config 2's ``ResampleStage.apply`` at the ``resample`` tool's
-block of 96 000.
+im2col, config 2's ``ResampleStage.apply`` at the ``resample`` tool's
+block of 96 000, and config 4's ``SpectralGainStage.apply``
+(``configs/stft_gain_256ch.json``: 256 channels, 2048-point frames, hop
+512) with each engine at the ``stft`` tool's block of 95 744 and the
+tool's gain (-6 dB, a notch over 1-2 kHz).
 Needs one CUDA GPU.
 
     python3 scripts/profile_configs_torch.py [--iters 50] [--top 4]
@@ -44,8 +47,10 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import fold_geometry, fold_rows
-    from llzlab_tpu_torch import (Chain, FIRStage, ResampleStage, firwin,
-                                  resample_taps)
+    import numpy as np
+
+    from llzlab_tpu_torch import (Chain, FIRStage, ResampleStage,
+                                  SpectralGainStage, firwin, resample_taps)
     from llzlab_tpu_torch.kernels import block2_fir as bf
     from llzlab_tpu_torch.ops import fir as fir_ops
     from llzlab_tpu_torch.runtime.platform import require_cuda
@@ -62,6 +67,7 @@ def main() -> int:
             return from_json(f.read())
 
     cfg1, cfg2 = config("fir_lowpass_1ch"), config("resample_8ch")
+    cfg4 = config("stft_gain_256ch")
     f1, rc = cfg1.fir, cfg2.resample
     t1 = int(cfg1.sample_rate * cfg1.seconds)
     t2 = int(cfg2.sample_rate * cfg2.seconds)
@@ -84,6 +90,12 @@ def main() -> int:
     m2 = chain2.block_multiple
     blk2 = x2[:, : int(2.0 * cfg2.sample_rate) // m2 * m2]
     st2 = chain2.init_state((cfg2.channels,), device=dev)
+    sc, rate4 = cfg4.stft, int(cfg4.sample_rate)
+    gain = np.full(sc.n_fft // 2 + 1, 10.0 ** (-6.0 / 20.0), np.float32)
+    f = np.arange(gain.size) * rate4 / sc.n_fft
+    gain[(f >= 1000.0) & (f <= 2000.0)] = 0.0
+    blk4 = torch.randn((cfg4.channels, int(2.0 * rate4) // sc.hop * sc.hop),
+                       generator=gen, device=dev)
 
     def block2_paths(mode):
         return {
@@ -107,10 +119,17 @@ def main() -> int:
               for m in ("ols", "direct", "im2col")]
     paths.append(("f32", f"ResampleStage.apply at {tuple(blk2.shape)}",
                   lambda: chain2.apply(blk2, st2)))
+    for engine in ("reference", "wdft", "cwola"):
+        stage = SpectralGainStage(gain, n_fft=sc.n_fft, hop=sc.hop,
+                                  window=sc.window, engine=engine)
+        st4 = stage.init_state((cfg4.channels,), device=dev)
+        paths.append(("f32", f"SpectralGainStage({engine}).apply at "
+                      f"{tuple(blk4.shape)}",
+                      lambda s=stage, st=st4: s.apply(blk4, st)))
 
     print(f"[profile] {smi}; config 1 {cfg1.channels} x {t1}, config 2 "
-          f"{cfg2.channels} x {t2}; {args.iters} calls back to back per "
-          f"path under torch.profiler")
+          f"{cfg2.channels} x {t2}, config 4 at {tuple(blk4.shape)}; "
+          f"{args.iters} calls back to back per path under torch.profiler")
     before = os.environ.get("LLZ_MATMUL_PRECISION")
     try:
         for mode, name, fn in paths:

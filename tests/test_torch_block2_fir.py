@@ -116,3 +116,22 @@ def test_plain_matches_pallas_kernel_highcat_body(ntaps):
                               mode="high")
     assert got.shape == ref.shape
     assert snr_db(ref, got.numpy()) >= VS_KERNEL_DB["high"]
+
+
+@pytest.mark.parametrize("rows", [1, 8, 65535, 65536, 65544, 131071, 131072,
+                                  200001])
+@pytest.mark.parametrize("mode", MODES)
+def test_row_chunks_cover_every_row_once(rows, mode):
+    """Kernel B2's launches over rows: at "highest" the grid's y extent is
+    the row, so chunks of at most 65 535 rows; at "high" one launch."""
+    chunks = bf.row_chunks(rows, mode)
+    covered = np.zeros(rows, np.int64)
+    for r0, r1 in chunks:
+        assert 0 <= r0 < r1 <= rows
+        assert r1 - r0 <= (rows if mode == "high" else bf.MAX_ROWS)
+        covered[r0:r1] += 1
+    assert (covered == 1).all()
+    assert [r0 for r0, _ in chunks] == sorted(r0 for r0, _ in chunks)
+    expect = 1 if mode == "high" else -(-rows // bf.MAX_ROWS)
+    assert len(chunks) == expect
+    assert bf.cuda_supports(rows, 1024, 1024, 1152)

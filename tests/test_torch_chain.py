@@ -177,7 +177,8 @@ def test_port_imports_no_jax():
         "'kernels.block2_fir', 'kernels.fused_fir_resample', "
         "'ops.transform', 'utils.checkpoint', 'ops.remez', 'ops.resample', "
         "'utils.config', 'utils.metrics', 'io.wav', 'cli.common', "
-        "'cli.fir', 'cli.resample'):\n"
+        "'cli.fir', 'cli.resample', 'ops.spectral', 'cli.stft', "
+        "'cli.channelizer'):\n"
         "    assert 'llzlab_tpu_torch.' + needed in names, needed\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"

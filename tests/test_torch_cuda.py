@@ -386,19 +386,71 @@ def test_block2_runs_any_channel_count(channels, mode, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_block2_above_2049_taps_raises_and_auto_takes_ols():
+def test_block2_above_2049_taps_runs_tensor_code_and_auto_takes_ols():
+    """Beyond B2's envelope ``method="block2"`` runs the two-product tensor
+    code, chosen before any launch: no kernel launch, the CPU's output at
+    the streaming floor; ``"auto"`` takes ols."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     from llzlab_tpu_torch.ops.fir import fir_filter
 
-    taps = firwin(2050, 0.25)
-    x = torch.randn((1, 3 * 4096), device="cuda")
+    taps = firwin(3001, 0.25)
+    x = torch.from_numpy(np.random.default_rng(47).standard_normal(
+        (2, 9000)).astype(np.float32))
     n = bf.block2_fir_cuda.launches
-    with pytest.raises(ValueError, match="ols"):
-        fir_filter(x, taps, method="block2")
-    y, zf = fir_filter(x, taps, return_zf=True)
+    y = fir_filter(x.cuda(), taps, method="block2")
     assert bf.block2_fir_cuda.launches == n
-    assert torch.equal(y, fir_filter(x, taps, method="ols"))
+    assert _snr_db(fir_filter(x, taps, method="block2"), y) >= 120.0
+    y, zf = fir_filter(x.cuda(), taps, return_zf=True)
+    assert bf.block2_fir_cuda.launches == n
+    assert torch.equal(y, fir_filter(x.cuda(), taps, method="ols"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["high", "highest"])
+def test_block2_over_65535_rows_equals_chunked_launches(mode):
+    """65 544 rows of 1152 samples: one call (at "highest" two launches,
+    the grid's y extent being the row) bitwise equal, row by row, to calls
+    of at most 65 535 rows, and at the plain version's floor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    taps = firwin(1024, 0.25)
+    block = block2_block(1024)
+    rows = 65536 + 8
+    gen = torch.Generator(device="cuda").manual_seed(48)
+    xpad = torch.randn((rows, block + 1152), generator=gen, device="cuda")
+    n = bf.block2_fir_cuda.launches
+    y = bf.block2_fir_cuda(xpad, taps, block, mode)
+    assert bf.block2_fir_cuda.launches == n + len(bf.row_chunks(rows, mode))
+    assert len(bf.row_chunks(rows, mode)) == (1 if mode == "high" else 2)
+    for r0, r1 in ((0, 65535), (65535, rows), (rows - 8, rows)):
+        assert torch.equal(
+            y[r0:r1], bf.block2_fir_cuda(xpad[r0:r1], taps, block, mode))
+    ref = bf.block2_fir_plain(xpad[-64:].double(), taps, block, "highest")
+    assert _snr_db(ref, y[-64:]) >= FLOOR_DB[mode]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["reference", "wdft", "cwola"])
+def test_config4_stage_on_the_card_matches_its_cpu_run(engine):
+    """Config 4's stage (2048-point frames, hop 512, Hann) on 4 channels of
+    1 s, streamed in two blocks, against the same stream on the CPU: cuFFT
+    or cuBLAS against the CPU's libraries, on the interior."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from llzlab_tpu_torch.pipeline import Chain, SpectralGainStage
+
+    gain = np.full(1025, 10 ** (-6 / 20), np.float32)
+    gain[43:86] = 0.0
+    x = torch.from_numpy(np.random.default_rng(49).standard_normal(
+        (4, 48128)).astype(np.float32))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        chain = Chain([SpectralGainStage(gain, engine=engine)])
+        ys = list(chain.stream([x[:, :24064].to(dev), x[:, 24064:].to(dev)]))
+        outs[dev] = torch.cat(ys, -1).cpu()
+    lo, hi = 1536 + 2048, 48128 - 2048
+    assert _snr_db(outs["cpu"][:, lo:hi], outs["cuda"][:, lo:hi]) >= 120.0
 
 
 @pytest.mark.cuda

@@ -1,0 +1,82 @@
+"""The names the JAX package exports from ``llzlab_tpu.ops`` and from
+``llzlab_tpu`` against the port's namespaces: every name is there unless
+its module is still to be ported (listed below with its slice) or it is
+left out on purpose (listed with the reason).  A listed name that has
+arrived fails too, so the lists stay true."""
+
+import importlib
+import importlib.util
+import inspect
+
+import pytest
+
+import llzlab_tpu
+import llzlab_tpu.ops
+import llzlab_tpu_torch
+import llzlab_tpu_torch.ops
+from llzlab_tpu_torch.pipeline import Chain
+
+#: modules still to be ported, by the slice of ROADMAP.md queue A
+TO_COME = {
+    "ops.iir": "slice 6", "ops.iir_matmul": "slice 6",
+    "ops.iir_select": "slice 6",
+    "ops.convolve": "slice 7", "ops.signals": "slice 7", "ops.dct": "slice 7",
+    "ops.chirpz": "slice 7", "ops.analysis": "slice 7", "ops.mdct": "slice 7",
+    "ops.smooth": "slice 7", "ops.compat": "slice 7",
+}
+#: names of ported modules that the port leaves out (ROADMAP.md, "Not to
+#: port"): the TPU's matrix-product FFT engines; cuFFT takes their place
+LEFT_OUT = {"fft_matmul", "rfft_matmul", "irfft_matmul"}
+NAMESPACES = {"ops": (llzlab_tpu.ops, llzlab_tpu_torch.ops),
+              "top level": (llzlab_tpu, llzlab_tpu_torch)}
+
+
+def _exported(ns):
+    """Public names of ``ns`` that are not modules, with their module
+    relative to the package (``ops.fir``, ``pipeline.chain``, …)."""
+    out = {}
+    for name in dir(ns):
+        obj = getattr(ns, name)
+        if name.startswith("_") or inspect.ismodule(obj):
+            continue
+        out[name] = obj.__module__.split(".", 1)[1]
+    return out
+
+
+def _ported(module: str) -> bool:
+    return importlib.util.find_spec(f"llzlab_tpu_torch.{module}") is not None
+
+
+@pytest.mark.parametrize("where", list(NAMESPACES))
+def test_port_exports_every_name_of_a_ported_module(where):
+    ref, port = NAMESPACES[where]
+    missing, early, stale = [], [], []
+    for name, module in sorted(_exported(ref).items()):
+        waiting = module in TO_COME or name in LEFT_OUT
+        if waiting and hasattr(port, name):
+            early.append(name)
+        elif not waiting and not hasattr(port, name):
+            missing.append(f"{name} ({module})")
+        if module in TO_COME and _ported(module):
+            stale.append(module)
+    assert not missing, f"ported modules' names missing: {missing}"
+    assert not early, f"listed as still to come, but exported: {early}"
+    assert not stale, f"modules ported, but listed as to come: {stale}"
+
+
+def test_the_lists_name_only_what_the_reference_has():
+    modules = {m for ns in NAMESPACES.values() for m in
+               _exported(ns[0]).values()}
+    names = {n for ns in NAMESPACES.values() for n in _exported(ns[0])}
+    assert set(TO_COME) <= modules
+    assert LEFT_OUT <= names
+    for module in ("ops.spectral", "ops.window", "ops.fused_chain",
+                   "ops.transform", "pipeline.chain"):
+        assert _ported(module)
+        importlib.import_module(f"llzlab_tpu_torch.{module}")
+
+
+def test_chain_stream_takes_dtype():
+    ref = inspect.signature(llzlab_tpu.pipeline.Chain.stream).parameters
+    port = inspect.signature(Chain.stream).parameters
+    assert list(ref) == list(port)

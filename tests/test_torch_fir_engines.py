@@ -153,3 +153,37 @@ def test_fir_stage_streams_and_resumes_a_reference_state(method):
 def test_fir_stage_rejects_an_unknown_method():
     with pytest.raises(ValueError, match="unknown method"):
         pchain.FIRStage(pfir.firwin(129, 0.2), method="fft")
+
+
+def test_block2_beyond_the_kernel_envelope_matches_the_reference():
+    """3001 taps (block 3072) lie outside kernel B2's envelope: block2 runs
+    the JAX package's two-product engine as tensor code, on the CPU as on
+    the card, with the same block and history as the JAX package."""
+    ntaps = 3001
+    taps = pfir.firwin(ntaps, 0.2)
+    block = pfir.block2_block(ntaps)
+    assert block == 3072 and not pfir._bf.cuda_supports(2, ntaps, block, 1)
+    x = _signal((2, 9000), 60)
+    zi = _signal((2, block), 61)
+    y_ref, zf_ref = rfir.fir_filter(jnp.asarray(x), taps, method="block2",
+                                    zi=jnp.asarray(zi), return_zf=True)
+    y, zf = pfir.fir_filter(torch.from_numpy(x), taps, method="block2",
+                            zi=torch.from_numpy(zi), return_zf=True)
+    assert y.shape == x.shape and zf.shape == (2, block)
+    assert snr_db(np.asarray(y_ref), y.numpy()) >= 120.0
+    np.testing.assert_array_equal(zf.numpy(), np.asarray(zf_ref))
+    # the route beyond the envelope is B2's plain version at "highest"
+    xpad = torch.from_numpy(np.concatenate([zi, x], axis=1))
+    plain = pfir._bf.block2_fir_plain(xpad, taps, block, "highest")
+    assert torch.equal(y, plain)
+    golden = ss.lfilter(taps, [1.0], np.concatenate([zi, x], 1).astype(
+        np.float64), axis=-1)[:, block:]
+    assert snr_db(golden, y.numpy()) >= VS_SCIPY_DB
+    # streamed at a multiple of the block: the same products, but the
+    # library's sum order may follow the number of blocks, so not bitwise
+    ya, za = pfir.fir_filter(torch.from_numpy(x[:, :block]), taps,
+                             method="block2", zi=torch.from_numpy(zi),
+                             return_zf=True)
+    yb = pfir.fir_filter(torch.from_numpy(x[:, block:]), taps,
+                         method="block2", zi=za)
+    assert snr_db(y.numpy(), torch.cat([ya, yb], -1).numpy()) >= 120.0

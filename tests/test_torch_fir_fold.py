@@ -173,10 +173,9 @@ def test_one_channel_stream_carries_state(mode, monkeypatch):
 
 
 def test_cuda_envelope_takes_any_row_count():
-    for rows in (1, 3, 7, 12, 469, bf.MAX_ROWS):
+    for rows in (1, 3, 7, 12, 469, bf.MAX_ROWS, bf.MAX_ROWS + 1, 131071):
         assert bf.cuda_supports(rows, 1024, 1024, 480000)
     assert not bf.cuda_supports(0, 1024, 1024, 100)
-    assert not bf.cuda_supports(bf.MAX_ROWS + 1, 1024, 1024, 100)
     assert not bf.cuda_supports(1, 1024, 1024, 0)
     assert bf.cuda_supports(1, 2049, 2048, 10)
     assert not bf.cuda_supports(8, 2050, pfir.block2_block(2050), 10)
