@@ -66,7 +66,25 @@ checks them:
    3001 taps, beyond B2's envelope, as tensor code with no launch; B2 on
    65 544 rows at both precisions, bitwise the launches of at most 65 535
    rows; CUDA-event times of each engine per tool block and one shot,
-   beside the host's enqueue time and the bound, and both tools' rates.
+   beside the host's enqueue time and the bound, and both tools' rates;
+8. config 3 at its published size (``configs/iir_eq_64ch.json``: 64 x
+   480 000, the 8-section peaking EQ, scan blocks of 4096) through
+   ``Chain([SOSStage])`` in one shot and streamed in the ``iir`` tool's
+   blocks (94 208), and split three ways at other multiples of 4096, all
+   bitwise equal, states too; 8 channels against scipy float64
+   ``sosfilt`` for the scan engine and ``sosfilt_matmul``; the engines
+   ``sosfilt_auto`` resolves (``min_snr_db=80``, ``bit_exact_carry``)
+   checked against the packaged calibration artifact of the card, and
+   its output bitwise the chosen engine's; the ``iir`` tool file to file
+   on a WAV of the same signal, bitwise the streamed stage; the device
+   memory a captured graph of ``sosfilt_matmul`` holds at the tool block
+   (a one shot runs eagerly and captures none), given back by
+   ``clear_graphs``; for both engines per tool block and one shot the
+   CUDA-event time, the host's enqueue time, the device kernels and copies
+   per call and the idle share under ``torch.profiler``, beside the
+   bounds.  No hand
+   kernel lies on this path (none does in the JAX package either): the
+   launch counts of all four stay 0.
 
 Every phase raises on failure.  The last line of stdout is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -132,6 +150,10 @@ CZ_TOOL_RUNS = (("--synth", "1024", "--seconds", "20.48"),
 #: (the JAX package's floors: tests/pipeline/test_chain.py
 #: TestSpectralGainStreaming, tests/ops/test_golden_cpp.py)
 STFT_STREAM_DB, STFT_INTERIOR_DB, STFT_GOLDEN_DB = 140.0, 120.0, 90.0
+#: config 3 against scipy float64, min over channels: the scan engine at
+#: the JAX package's floor (tests/ops/test_iir.py:64), the matrix-product
+#: engine above it (tests/ops/test_iir_matmul.py:36)
+IIR_SCAN_DB, IIR_MATMUL_DB = 120.0, 110.0
 #: SNR floors of a kernel against its plain version run in float64
 KERNEL_FLOOR_DB = {"highest": 130.0, "high": 75.0}
 #: all-channel-min SNR floors of the chain against scipy float64
@@ -735,6 +757,194 @@ def config_4_and_tools(dev, smi):
     del xr, y
     torch.cuda.empty_cache()
     return err
+
+
+def config_3_and_tool(dev, smi):
+    """Phase 8: config 3 at its published size through ``SOSStage`` (the
+    scan engine), ``sosfilt_matmul``, ``sosfilt_auto`` and the ``iir``
+    tool, with their times.  Raises on any failure."""
+    import tempfile
+
+    import scipy.signal as ss
+    import torch
+    import torch.nn.functional as F
+
+    from llzlab_tpu_torch import (Chain, SOSStage, peaking_eq_sos,
+                                  sosfilt_matmul)
+    from llzlab_tpu_torch.cli import iir as iir_cli
+    from llzlab_tpu_torch.io.wav import read_wav, write_wav
+    from llzlab_tpu_torch.ops import iir_matmul, iir_select
+    from llzlab_tpu_torch.ops.iir import sos_plan
+    from llzlab_tpu_torch.runtime.profiler import profile_calls
+
+    def check(what, got_db, floor, strict=False):
+        log(f"[config3] {what}: {got_db:.1f} dB (floor {floor})")
+        if not (got_db > floor if strict else got_db >= floor):
+            raise RuntimeError(f"{what}: {got_db:.1f} dB below {floor}")
+
+    cfg = load_config("iir_eq_64ch")
+    ic = cfg.iir
+    c, t, rate = cfg.channels, int(cfg.sample_rate * cfg.seconds), \
+        int(cfg.sample_rate)
+    L = ic.block_size
+    sos = peaking_eq_sos(ic.freqs, ic.gains_db, ic.sample_rate, q=ic.q)
+    ns = len(sos)
+    blk = int(2.0 * rate) // L * L  # the iir tool's block
+    nblk = -(-t // blk)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((c, t), generator=gen, device=dev)
+    xp = F.pad(x, (0, nblk * blk - t))  # the tool pads its last block
+    blocks = [xp[:, i * blk:(i + 1) * blk] for i in range(nblk)]
+    stage = SOSStage(sos, block_size=L)
+    chain = Chain([stage])
+    log(f"[config3] config 3 ({cfg.name}): {c} x {t}, {ns} peaking "
+        f"sections ({', '.join(sorted(set(sos_plan(sos)[0])))} form), "
+        f"scan blocks of {L}; streamed in {nblk} blocks of {blk} (the iir "
+        f"tool's, the last zero-padded)")
+
+    def run(pieces):
+        st = chain.init_state((c,), device=dev)
+        outs = []
+        for piece in pieces:
+            y, st = chain.apply(piece, st)
+            outs.append(y)
+        return torch.cat(outs, -1), st[0]
+
+    one, zf_one = run([x])
+    streamed, _ = run(blocks)
+    cuts = (30 * L, 77 * L)
+    three, zf_three = run([x[:, :cuts[0]], x[:, cuts[0]:cuts[1]],
+                           x[:, cuts[1]:]])
+    if one.shape != (c, t) or not bool(torch.isfinite(one).all()):
+        raise RuntimeError(f"config 3: bad output {tuple(one.shape)}")
+    same = bool(torch.equal(streamed[:, :t], one))
+    same3 = bool(torch.equal(three, one)) and bool(torch.equal(zf_three,
+                                                               zf_one))
+    log(f"[config3] streamed in the tool's blocks == one shot bitwise: "
+        f"{same}; split at {cuts[0]} and {cuts[1]} == one shot bitwise, "
+        f"output and states: {same3}")
+    if not (same and same3):
+        raise RuntimeError("config 3: streamed != one shot")
+    del three, zf_three
+
+    ref = ss.sosfilt(sos, x[:CZ_GOLDEN_CHANNELS].double().cpu().numpy(),
+                     axis=-1)
+    check(f"scan engine (SOSStage), {CZ_GOLDEN_CHANNELS} channels vs scipy "
+          f"float64 sosfilt, min channel",
+          min_channel_snr_db(ref, one[:CZ_GOLDEN_CHANNELS].cpu().numpy()),
+          IIR_SCAN_DB)
+    y_mm = sosfilt_matmul(sos, x)
+    check(f"sosfilt_matmul (L = 254), {CZ_GOLDEN_CHANNELS} channels vs "
+          f"scipy float64 sosfilt, min channel",
+          min_channel_snr_db(ref, y_mm[:CZ_GOLDEN_CHANNELS].cpu().numpy()),
+          IIR_MATMUL_DB, strict=True)
+
+    # ---- sosfilt_auto against the packaged artifact of this card -------
+    kind = torch.cuda.get_device_name(dev)
+    path = iir_select.calib_path(kind)
+    if not os.path.exists(path):
+        raise RuntimeError(f"no calibration artifact for {kind!r} ({path})")
+    with open(path) as f:
+        art = json.load(f)
+    meets = [r for r in art["measured"]
+             if r["snr"] - iir_select.SNR_MARGIN_DB >= 80.0]
+    best = max(meets, key=lambda r: r["msps"])
+    expect = (best["engine"], best["precision"])
+    got = iir_select.select_engine(dev, min_snr_db=80.0)
+    got_exact = iir_select.select_engine(dev, bit_exact_carry=True)
+    log(f"[config3] sosfilt_auto on {kind}: min_snr_db=80 -> {got} (the "
+        f"artifact's fastest row meeting it: {expect}, "
+        f"{best['msps']} Msamples/s, {best['snr']} dB); "
+        f"bit_exact_carry=True -> {got_exact}")
+    if got != expect or got_exact != ("scan", "f32"):
+        raise RuntimeError(f"sosfilt_auto took {got} / {got_exact}")
+    direct = one if got[0] == "scan" else sosfilt_matmul(sos, x,
+                                                         precision=got[1])
+    if not (torch.equal(iir_select.sosfilt_auto(sos, x, min_snr_db=80.0),
+                        direct)
+            and torch.equal(iir_select.sosfilt_auto(
+                sos, x, bit_exact_carry=True, block_size=L), one)):
+        raise RuntimeError("sosfilt_auto's output != its engine's")
+    del direct, y_mm
+
+    # ---- the iir tool, file to file --------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "c3.wav")
+        write_wav(wav, x.cpu().numpy(), rate)
+        eq = [f"{f}:{g}" for f, g in zip(ic.freqs, ic.gains_db)]
+        _, msps = iir_cli.main(["-i", wav, "-o", wav + ".out", "--eq", *eq,
+                                "--q", str(ic.q), "--block-size", str(L)])
+        y, r = read_wav(wav + ".out")
+    same = r == rate and bool(np.array_equal(
+        y, streamed[:, :t].cpu().numpy()))
+    log(f"[config3] iir tool file to file: {msps:.1f} Msamples/s (its own "
+        f"clock), {y.shape} at {r} Hz, bitwise the streamed stage: {same}")
+    if not same:
+        raise RuntimeError("iir tool output != the streamed stage")
+    del y, streamed, one
+
+    # ---- the memory a captured graph of the matmul engine holds ---------
+    st = stage.init_state((c,), device=dev)
+
+    def reserved():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(dev)
+
+    iir_matmul.clear_graphs()
+    before = reserved()  # a first capture also makes the capture stream's
+    sosfilt_matmul(sos, blocks[1], zi=st, return_zf=True)  # cuBLAS
+    iir_matmul.clear_graphs()  # workspace, which it keeps for the process
+    log(f"[config3] sosfilt_matmul's capture stream keeps "
+        f"{(reserved() - before) / 2**20:.1f} MiB reserved once a process "
+        f"(its cuBLAS workspace)")
+    for what, v in (("tool block", blocks[1]), ("one shot", x)):
+        before = reserved()
+        sosfilt_matmul(sos, v, zi=st, return_zf=True)
+        graphs, held = len(iir_matmul._graphs), reserved() - before
+        dropped = iir_matmul.clear_graphs()
+        back = reserved() - before
+        log(f"[config3] sosfilt_matmul {what} {tuple(v.shape)}: {graphs} "
+            f"graph(s) captured (at most {iir_matmul.GRAPH_MAX_SAMPLES} "
+            f"samples), holding {held / 2**20:.1f} MiB reserved; after "
+            f"clear_graphs() ({dropped} dropped) {back / 2**20:.1f} MiB")
+        if graphs != int(c * v.shape[-1] <= iir_matmul.GRAPH_MAX_SAMPLES) \
+                or dropped != graphs or back != 0:
+            raise RuntimeError(f"sosfilt_matmul {what}: {graphs} graphs, "
+                               f"{dropped} dropped, {back} bytes kept")
+
+    # ---- times: per tool block and per one shot -------------------------
+    engines = (
+        ("scan (SOSStage.apply)", lambda v: stage.apply(v, st)),
+        ("matmul (sosfilt_matmul)",
+         lambda v: sosfilt_matmul(sos, v, zi=st, return_zf=True)),
+    )
+    for name, fn in engines:
+        for what, v, iters in (("tool block", blocks[1], 10),
+                               ("one shot", x, 3)):
+            ms = cuda_ms(lambda: fn(v), iters=iters, warmup=1)
+            enqueue_ms = host_ms(lambda: fn(v), iters=iters, warmup=0)
+            prof = profile_calls(lambda: fn(v))
+            seen = ("not measured (the profiler saw no device time)"
+                    if prof is None else
+                    f"{prof.kernels:.0f} kernels and {prof.copies:.0f} "
+                    f"copies, {prof.busy_ms:.3f} ms of device time in "
+                    f"{prof.event_ms:.3f} ms, idle {prof.idle_pct:.0f} %")
+            path = ("" if name.startswith("scan") else
+                    ", a CUDA graph replayed" if c * v.shape[-1]
+                    <= iir_matmul.GRAPH_MAX_SAMPLES else ", eager")
+            n = v.shape[-1]
+            # the function reads x and writes y once (5 multiply-adds a
+            # sample a section, fp32); a pass per section moves both ns
+            # times
+            b, by = fir_bound_ms(2.0 * 5 * ns * c * n, 2 * 4.0 * c * n)
+            log(f"[time] config 3 {name} {c}x{n} {what}{path}, host "
+                f"enqueue {enqueue_ms:.3f} ms, per apply under the "
+                f"profiler {seen}: {ms:.3f} ms ({c * n / ms / 1e3:.0f} "
+                f"Msamples/s), bound {b:.4f} ms ({by}); a pass per section "
+                f"{ns * b:.3f} ms; on {smi}")
+    del x, xp, blocks
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1427,6 +1637,14 @@ def main() -> int:
     # ---- phase 7: config 4, the stft and channelizer tools, B2's limits --
     errors["block2_fir"] = max(errors["block2_fir"],
                                config_4_and_tools(dev, smi))
+
+    # ---- phase 8: config 3 and the iir tool ------------------------------
+    reset_launches()
+    config_3_and_tool(dev, smi)
+    got = {name: w.launches for name, w in wrappers.items()}
+    log(f"[config3] kernel launches on this path: {got} (none expected)")
+    if any(got.values()):
+        raise RuntimeError(f"config 3 launched a hand kernel: {got}")
     log(f"[memory] peak device memory allocated in this run: "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
 

@@ -14,16 +14,18 @@ Layering:
     pipeline/ — chain composition + streaming
     chains/   — the channelizer, on one device and sharded over time
     utils/    — checkpoint/resume, configs, metrics
-    io/, cli/ — WAV I/O and the ``fir``, ``resample``, ``stft`` and
-              ``channelizer`` tools
+    io/, cli/ — WAV I/O and the ``fir``, ``iir``, ``resample``, ``stft``
+              and ``channelizer`` tools
+    calib/    — the IIR engine selection's per-card measurements
 
 Ported so far: FIR design (window, frequency sampling, Kaiser, least
 squares, minimum phase, Remez) and filtering (block2 on any channel
 count, overlap-save, direct, im2col), polyphase, FFT and decimating
 resampling, the fused FIR→resample step, the FFT entry points, STFT /
-iSTFT and the spectral-gain stage (config 4), the channelizer with its
-time-sharded step, and the ``fir``, ``resample``, ``stft`` and
-``channelizer`` tools.
+iSTFT and the spectral-gain stage (config 4), IIR design and the
+blockwise-scan and matrix-product biquad engines with their calibrated
+selection (config 3), the channelizer with its time-sharded step, and
+the ``fir``, ``iir``, ``resample``, ``stft`` and ``channelizer`` tools.
 """
 
 __version__ = "0.1.0"
@@ -40,12 +42,32 @@ from llzlab_tpu_torch.ops import (  # noqa: F401
     get_window,
     stft,
     istft,
+    butter_sos,
+    cheby1_sos,
+    cheby2_sos,
+    ellip_sos,
+    bessel_sos,
+    iirfilter_sos,
+    peaking_eq_sos,
+    rbj_biquad,
+    sosfilt,
+    sosfilt_matmul,
+    sosfilt_auto,
+    filtfilt,
+    sosfiltfilt,
+    lfilter,
+    lfilter_zi,
+    sosfilt_zi,
+    sosfilt_zi_scan,
 )
 # imported from the submodule, not llzlab_tpu_torch.ops, so the scipy-named
 # function never shadows the ops.resample module
 from llzlab_tpu_torch.ops.resample import resample, decimate  # noqa: F401
 from llzlab_tpu_torch.ops.fir import (  # noqa: F401
     firwin2, kaiserord, kaiser_beta, kaiser_atten,
+)
+from llzlab_tpu_torch.ops.iir import (  # noqa: F401
+    buttord, cheb1ord, cheb2ord, ellipord, tf2sos,
 )
 from llzlab_tpu_torch.ops.transform import (  # noqa: F401
     fft,
@@ -67,6 +89,7 @@ from llzlab_tpu_torch.chains import Channelizer  # noqa: F401
 from llzlab_tpu_torch.pipeline import (  # noqa: F401
     Chain,
     FIRStage,
+    SOSStage,
     ResampleStage,
     FusedFirResampleStage,
     SpectralGainStage,

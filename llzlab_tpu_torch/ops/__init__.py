@@ -28,6 +28,30 @@ from llzlab_tpu_torch.ops.fir import (  # noqa: F401
     ols_hop,
     fir_state_len,
 )
+from llzlab_tpu_torch.ops.iir import (  # noqa: F401
+    butter_sos,
+    cheby1_sos,
+    cheby2_sos,
+    ellip_sos,
+    bessel_sos,
+    iirfilter_sos,
+    buttord,
+    cheb1ord,
+    cheb2ord,
+    ellipord,
+    peaking_eq_sos,
+    rbj_biquad,
+    sosfilt,
+    sosfiltfilt,
+    filtfilt,
+    lfilter,
+    lfilter_zi,
+    sosfilt_zi,
+    sosfilt_zi_scan,
+    tf2sos,
+)
+from llzlab_tpu_torch.ops.iir_matmul import sosfilt_matmul  # noqa: F401
+from llzlab_tpu_torch.ops.iir_select import sosfilt_auto  # noqa: F401
 from llzlab_tpu_torch.ops.fused_chain import (  # noqa: F401
     fir_resample,
     fir_resample_state_len,

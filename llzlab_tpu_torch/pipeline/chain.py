@@ -9,9 +9,10 @@ there is no jit region: a block's stages run one after the other on the
 device of the block.  States are tuples of tensors, created on the device
 the caller names.
 
-Stages ported so far: ``FIRStage`` (every engine of ops/fir.py),
-``ResampleStage``, ``FusedFirResampleStage``, ``SpectralGainStage``,
-``FFTStage`` and ``LambdaStage``.  ``SOSStage`` comes with the IIR slice.
+Stages: ``FIRStage`` (every engine of ops/fir.py), ``SOSStage`` (the
+blockwise IIR scan), ``ResampleStage``, ``FusedFirResampleStage``,
+``SpectralGainStage``, ``FFTStage`` and ``LambdaStage``, all the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 from llzlab_tpu_torch.kernels import fused_fir_resample as _ff
 from llzlab_tpu_torch.ops import fir as _fir
 from llzlab_tpu_torch.ops import fused_chain as _fc
+from llzlab_tpu_torch.ops import iir as _iir
 from llzlab_tpu_torch.ops import resample as _resample
 from llzlab_tpu_torch.ops import spectral as _stft
 from llzlab_tpu_torch.ops import transform as _fft
@@ -33,6 +35,7 @@ from llzlab_tpu_torch.runtime.platform import precision_scope
 __all__ = [
     "Stage",
     "FIRStage",
+    "SOSStage",
     "ResampleStage",
     "FusedFirResampleStage",
     "SpectralGainStage",
@@ -91,6 +94,29 @@ class FIRStage(Stage):
     def apply(self, x, state):
         return _fir.fir_filter(x, self.taps, method=self.method,
                                nfft=self.nfft, zi=state, return_zf=True)
+
+
+class SOSStage(Stage):
+    """Cascaded-biquad filtering by the blockwise scan (ops/iir.py).
+
+    The state is the sections' ``(..., ns, 2)`` float32 scan states, the
+    JAX package's layout, so a state saved by either resumes in the other;
+    blocks at multiples of ``block_size`` stream bit for bit.
+    """
+
+    def __init__(self, sos, *, block_size: int = 4096):
+        self.sos = np.asarray(sos, dtype=np.float64)
+        self.block_size = block_size
+        self.block_multiple = block_size
+
+    def init_state(self, batch_shape, *, device, dtype=torch.float32):
+        return torch.zeros(tuple(batch_shape) + (self.sos.shape[0], 2),
+                           dtype=torch.float32, device=device)
+
+    def apply(self, x, state):
+        return _iir.sosfilt(
+            self.sos, x, zi=state, block_size=self.block_size, return_zf=True
+        )
 
 
 class ResampleStage(Stage):

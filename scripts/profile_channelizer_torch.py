@@ -17,7 +17,6 @@ import argparse
 import os
 import subprocess
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -35,12 +34,12 @@ def main() -> int:
     args = ap.parse_args()
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from llzlab_tpu_torch import Channelizer, shard_time
     from llzlab_tpu_torch.kernels.halo_ring import check_exchanges
     from llzlab_tpu_torch.parallel.mesh import TIME_AXIS, DspMesh
     from llzlab_tpu_torch.runtime.platform import require_cuda
+    from llzlab_tpu_torch.runtime.profiler import profile_calls
 
     dev = require_cuda()
     smi = subprocess.run(
@@ -61,37 +60,24 @@ def main() -> int:
     check_exchanges(mesh)
     torch.cuda.synchronize()
 
-    begin = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        begin.record()
-        for _ in range(args.steps):
-            _, state = step(parts, state)
-        end.record()
-        enqueue_ms = (time.perf_counter() - t0) * 1e3 / args.steps
-        torch.cuda.synchronize()
-    check_exchanges(mesh)
-    step_ms = begin.elapsed_time(end) / args.steps
+    def one_step():
+        nonlocal state
+        _, state = step(parts, state)
 
-    rows = [(e.key, e.device_time_total / 1e3 / args.steps, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
-    if busy_ms <= 0.0:
+    prof = profile_calls(one_step, args.steps)
+    check_exchanges(mesh)
+    if prof is None:
         print("torch.profiler saw no device time", file=sys.stderr)
         return 1
     print(f"[profile] {smi}; fir_method={args.method} halo={args.halo} "
           f"{args.channels} x {args.ranks * t_loc} on {args.ranks} ranks, "
           f"{args.steps} steps under torch.profiler")
-    print(f"[profile] per step: CUDA events {step_ms:.3f} ms, host enqueue "
-          f"{enqueue_ms:.3f} ms, kernel time summed over streams "
-          f"{busy_ms:.3f} ms")
-    for key, ms, count in rows[: args.top]:
-        print(f"[profile] {ms:9.3f} ms  {100 * ms / busy_ms:5.1f} %  "
-              f"{count / args.steps:6.1f} launches  {key[:90]}")
+    print(f"[profile] per step: CUDA events {prof.event_ms:.3f} ms, host "
+          f"enqueue {prof.host_ms:.3f} ms, kernel time summed over streams "
+          f"{prof.busy_ms:.3f} ms")
+    for key, ms, count in prof.rows[: args.top]:
+        print(f"[profile] {ms:9.3f} ms  {100 * ms / prof.busy_ms:5.1f} %  "
+              f"{count:6.1f} launches  {key[:90]}")
     return 0
 
 

@@ -29,7 +29,6 @@ import argparse
 import os
 import subprocess
 import sys
-import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -44,7 +43,6 @@ def main() -> int:
 
     import torch
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import fold_geometry, fold_rows
     import numpy as np
@@ -54,6 +52,7 @@ def main() -> int:
     from llzlab_tpu_torch.kernels import block2_fir as bf
     from llzlab_tpu_torch.ops import fir as fir_ops
     from llzlab_tpu_torch.runtime.platform import require_cuda
+    from llzlab_tpu_torch.runtime.profiler import profile_calls
     from llzlab_tpu_torch.utils.config import from_json
 
     dev = require_cuda()
@@ -137,34 +136,15 @@ def main() -> int:
                 os.environ["LLZ_MATMUL_PRECISION"] = mode
             for _ in range(3):  # build, tables, allocator
                 fn()
-            torch.cuda.synchronize()
-            begin = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                begin.record()
-                for _ in range(args.iters):
-                    fn()
-                end.record()
-                host_ms = (time.perf_counter() - t0) * 1e3 / args.iters
-                torch.cuda.synchronize()
-            event_ms = begin.elapsed_time(end) / args.iters
-            kernels = [(e.key, e.device_time_total / 1e3 / args.iters,
-                        e.count / args.iters)
-                       for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and e.device_time_total > 0]
-            kernels.sort(key=lambda k: -k[1])
-            busy = sum(k[1] for k in kernels)
-            if busy <= 0.0:
+            prof = profile_calls(fn, args.iters)
+            if prof is None:
                 print("torch.profiler saw no device time", file=sys.stderr)
                 return 1
-            print(f"[profile] {mode:7s} {name}: device {busy:.4f} ms in "
-                  f"{sum(k[2] for k in kernels):.0f} kernels, CUDA events "
-                  f"{event_ms:.4f} ms, host enqueue {host_ms:.4f} ms, idle "
-                  f"{100 * max(0.0, 1 - busy / event_ms):.0f} % per call")
-            for key, ms, count in kernels[: args.top]:
+            print(f"[profile] {mode:7s} {name}: device {prof.busy_ms:.4f} ms "
+                  f"in {prof.kernels + prof.copies:.0f} kernels, CUDA events "
+                  f"{prof.event_ms:.4f} ms, host enqueue {prof.host_ms:.4f} "
+                  f"ms, idle {prof.idle_pct:.0f} % per call")
+            for key, ms, count in prof.rows[: args.top]:
                 print(f"[profile]     {ms:8.4f} ms  {count:4.1f} x  "
                       f"{key[:80]}")
     finally:

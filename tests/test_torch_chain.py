@@ -178,7 +178,8 @@ def test_port_imports_no_jax():
         "'ops.transform', 'utils.checkpoint', 'ops.remez', 'ops.resample', "
         "'utils.config', 'utils.metrics', 'io.wav', 'cli.common', "
         "'cli.fir', 'cli.resample', 'ops.spectral', 'cli.stft', "
-        "'cli.channelizer'):\n"
+        "'cli.channelizer', 'ops.iir', 'ops.iir_matmul', 'ops.iir_select', "
+        "'cli.iir'):\n"
         "    assert 'llzlab_tpu_torch.' + needed in names, needed\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"

@@ -469,3 +469,141 @@ def test_fir_engines_on_the_card(method):
     xpad = torch.cat([torch.zeros((2, block), device="cuda"), x], -1)
     ref = bf.block2_fir_plain(xpad.double(), taps, block, "highest")
     assert y.is_cuda and _snr_db(ref, y) >= 110.0
+
+
+def _eq_and_butter():
+    """Config 3's 8-section EQ (coupled form) and a 7th-order Butterworth
+    (one real-pole section: the companion form)."""
+    from llzlab_tpu_torch.ops.iir import butter_sos, peaking_eq_sos
+
+    return {"eq": peaking_eq_sos([100, 200, 400, 800, 1600, 3200, 6400,
+                                  12800], [3, -4, 5, -2, 6, -3, 2, -5],
+                                 48000.0),
+            "butter7": butter_sos(7, 0.3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["eq", "butter7"])
+def test_iir_scan_engine_on_the_card(design):
+    """``sosfilt`` on a CUDA tensor: a 2-way and a 3-way split at multiples
+    of the block bitwise one shot (output and states), against scipy
+    float64 at the JAX package's floors (120 dB for the EQ, 100 for a
+    real-pole design), and bitwise its own run on the CPU (the same
+    float32 mul/add and the same host carry)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    import scipy.signal as ss
+
+    from llzlab_tpu_torch.ops.iir import sosfilt
+
+    sos = _eq_and_butter()[design]
+    x = torch.from_numpy(np.random.default_rng(50).standard_normal(
+        (8, 6 * 1024 + 300)).astype(np.float32))
+    xc = x.cuda()
+    one, zf = sosfilt(sos, xc, block_size=1024, return_zf=True)
+    for cuts in ((2048,), (1024, 4096)):
+        parts, zi = [], None
+        for a, b in zip((0,) + cuts, cuts + (x.shape[1],)):
+            y, zi = sosfilt(sos, xc[:, a:b], zi=zi, block_size=1024,
+                            return_zf=True)
+            parts.append(y)
+        assert torch.equal(torch.cat(parts, -1), one)
+        assert torch.equal(zi, zf)
+    ref = ss.sosfilt(sos, x.double().numpy(), axis=-1)
+    assert _snr_db(torch.from_numpy(ref), one) >= (
+        120.0 if design == "eq" else 100.0)
+    y_cpu, zf_cpu = sosfilt(sos, x, block_size=1024, return_zf=True)
+    assert torch.equal(one.cpu(), y_cpu) and torch.equal(zf.cpu(), zf_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["eq", "butter7"])
+def test_iir_matmul_engine_on_the_card(design):
+    """``sosfilt_matmul`` on a CUDA tensor (fp32 cuBLAS, TF32 off) against
+    scipy float64 above the JAX package's 110 dB, ragged tail included,
+    on two signals of one shape: the second call replays the first's
+    captured graph with new inputs and states, and leaves the first
+    call's outputs as they were."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    import scipy.signal as ss
+
+    from llzlab_tpu_torch.ops.iir_matmul import sosfilt_matmul
+
+    sos = _eq_and_butter()[design]
+    x = np.random.default_rng(51).standard_normal((2, 8, 20000)).astype(
+        np.float32)
+    zi = torch.zeros((8, len(sos), 2), device="cuda")
+    y0, z0 = sosfilt_matmul(sos, torch.from_numpy(x[0]).cuda(), zi=zi,
+                            return_zf=True)
+    kept = (y0.clone(), z0.clone())
+    y1 = sosfilt_matmul(sos, torch.from_numpy(x[1]).cuda(), zi=z0)
+    assert torch.equal(y0, kept[0]) and torch.equal(z0, kept[1])
+    ref = ss.sosfilt(sos, x.astype(np.float64).transpose(1, 0, 2).reshape(
+        8, -1), axis=-1)
+    assert y0.is_cuda and _snr_db(torch.from_numpy(ref[:, :20000]), y0) > 110.0
+    assert _snr_db(torch.from_numpy(ref[:, 20000:]), y1) > 110.0
+
+
+@pytest.mark.cuda
+def test_iir_matmul_graphs_hold_memory_until_cleared(monkeypatch):
+    """``sosfilt_matmul`` captures a CUDA graph only for a call of at most
+    ``GRAPH_MAX_SAMPLES``; the graph's pool stays reserved until
+    ``clear_graphs`` drops it, and a larger call runs eagerly, capturing
+    none, to the same result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from llzlab_tpu_torch.ops import iir_matmul
+
+    def reserved():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    sos = _eq_and_butter()["eq"]
+    x = torch.randn((8, 20000), device="cuda")
+    iir_matmul.sosfilt_matmul(sos, x[:, :1000])  # the capture stream's
+    iir_matmul.clear_graphs()  # cuBLAS workspace, kept for the process
+    monkeypatch.setattr(iir_matmul, "GRAPH_MAX_SAMPLES", 8 * 20000 - 1)
+    eager = iir_matmul.sosfilt_matmul(sos, x)  # padded past the limit
+    assert len(iir_matmul._graphs) == 0
+    before = reserved()
+    monkeypatch.setattr(iir_matmul, "GRAPH_MAX_SAMPLES", 1 << 24)
+    replayed = iir_matmul.sosfilt_matmul(sos, x)
+    assert len(iir_matmul._graphs) == 1
+    assert torch.equal(eager, replayed)
+    del replayed
+    assert reserved() > before
+    assert iir_matmul.clear_graphs() == 1
+    assert reserved() == before
+
+
+@pytest.mark.cuda
+def test_sosfilt_auto_reads_the_card_artifact():
+    """On a CUDA tensor ``sosfilt_auto`` ranks the engines by this card's
+    packaged artifact (``llzlab_tpu_torch/calib/``), and
+    ``bit_exact_carry`` takes the scan engine."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    import json
+    import os
+
+    from llzlab_tpu_torch.ops import iir_select
+
+    kind = torch.cuda.get_device_name(0)
+    path = iir_select.calib_path(kind)
+    assert os.path.exists(path), f"no artifact for {kind!r}"
+    with open(path) as f:
+        rows = json.load(f)["measured"]
+    iir_select.load_engine_matrix.cache_clear()
+    for need in (80.0, 120.0):
+        meets = [r for r in rows
+                 if r["snr"] - iir_select.SNR_MARGIN_DB >= need]
+        best = max(meets, key=lambda r: r["msps"])
+        assert iir_select.select_engine("cuda", min_snr_db=need) == (
+            best["engine"], best["precision"])
+    assert iir_select.select_engine("cuda", bit_exact_carry=True) == (
+        "scan", "f32")
+    sos = _eq_and_butter()["eq"]
+    x = torch.randn((4, 9000), device="cuda")
+    assert iir_select.sosfilt_auto(sos, x).is_cuda
