@@ -84,7 +84,25 @@ checks them:
    per call and the idle share under ``torch.profiler``, beside the
    bounds.  No hand
    kernel lies on this path (none does in the JAX package either): the
-   launch counts of all four stay 0.
+   launch counts of all four stay 0;
+9. the remaining ops on the card at the BASELINE configs' widths (10 s at
+   48 kHz), inputs made on the card from a seed: config 4's 256 channels
+   through ``spectrogram`` (2048, hop 512, Hann), ``welch``, ``csd``,
+   ``coherence`` (``nperseg`` 2048, 50 %) and ``periodogram``; config 3's
+   64 through ``hilbert``, ``analytic_envelope``, ``detrend``,
+   ``savgol_filter`` (101, 3), ``medfilt`` (5), ``wiener`` (5),
+   ``fftconvolve``, ``correlate``, ``compat.convolve`` (and its direct
+   path on one row) and ``oaconvolve`` with config 1's 1024 taps,
+   ``zoom_fft`` (900-1100 Hz, m = 4096) and ``czt`` on one row; config 2's
+   8 through ``mdct`` / ``imdct`` at N = 960 and the type-2 DCT / DST and
+   their inverses on its coefficients, and ``upfirdn`` at 147/160 on one
+   second (the one cut: the whole file needs a 2^27-point FFT a row);
+   ``lombscargle`` at 4096 x 20 000; ``find_peaks``, the responses, the
+   designers and conversions once on the host.  Each output lies on the
+   card and is held against scipy / numpy float64 on 4 channels at the JAX
+   package's floors, then timed with CUDA events beside its bound;
+   ``StageTimer`` and ``roofline_report`` around the first ``welch``.  No
+   hand kernel lies on this path: the launch counts of all four stay 0.
 
 Every phase raises on failure.  The last line of stdout is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -159,6 +177,27 @@ KERNEL_FLOOR_DB = {"highest": 130.0, "high": 75.0}
 #: all-channel-min SNR floors of the chain against scipy float64
 CHAIN_FLOOR_DB = {"highest": 110.0, "high": 80.0}
 MODES = ("high", "highest")
+#: phase 9: the BASELINE configs' signal widths (10 s at 48 kHz), by config
+P9_SECONDS_RATE = (10.0, 48000)
+P9_CHANNELS = {"config 4": 256, "config 3": 64, "config 2": 8}
+#: channels of each phase-9 output held against float64 on the host
+P9_HOST_CHANNELS = 4
+#: the JAX package's floors against scipy / numpy float64: fftconvolve,
+#: correlate and upfirdn (tests/ops/test_extras.py:25,42,
+#: tests/ops/test_compat.py:162), hilbert (tests/ops/test_extras.py:152),
+#: the spectral densities (:161,169), detrend, savgol, wiener and the CZT
+#: (tests/ops/test_smooth_czt.py:25,42,63,70-87), the MDCT
+#: (tests/ops/test_mdct.py:15); medfilt and the DCT by absolute error
+#: (tests/ops/test_smooth_czt.py:55, tests/ops/test_dct.py:25)
+P9_FLOOR_DB = {"conv": 110.0, "hilbert": 100.0, "psd": 90.0,
+               "detrend": 120.0, "smooth": 100.0, "czt": 100.0,
+               "mdct": 110.0}
+P9_MEDFILT_ATOL, P9_DCT_ATOL = 1e-6, 2e-5
+#: AAC's frame: divides 480 000 (1024 does not, and mdct raises there)
+P9_MDCT_N = 960
+#: upfirdn runs on this much of config 2's signal, the one cut of phase 9:
+#: 147/160 zero-stuffs a 10 s row to 70.6 M samples, a 2^27-point FFT a row
+P9_UPFIRDN_SECONDS = 1.0
 
 
 def log(msg: str) -> None:
@@ -181,10 +220,15 @@ def matmul_precision(mode: str):
 
 
 def min_channel_snr_db(ref, y) -> float:
-    ref = np.asarray(ref, np.float64)
-    err = ref - np.asarray(y, np.float64)
+    """Least SNR over the channels (the first axis) of real or complex
+    arrays."""
+    cast = np.complex128 if np.iscomplexobj(ref) else np.float64
+    ref = np.asarray(ref, cast)
+    err = ref - np.asarray(y, cast)
+    ref, err = ref.reshape(ref.shape[0], -1), err.reshape(err.shape[0], -1)
     return float(np.min(10.0 * np.log10(
-        np.sum(ref * ref, axis=-1) / np.sum(err * err, axis=-1))))
+        np.sum(np.abs(ref) ** 2, axis=-1) / np.sum(np.abs(err) ** 2,
+                                                   axis=-1))))
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -947,6 +991,344 @@ def config_3_and_tool(dev, smi):
     torch.cuda.empty_cache()
 
 
+def remaining_ops(dev, smi):
+    """Phase 9: every device op of queue A slice 7 on the card ``dev`` at
+    the BASELINE configs' widths, each output held against scipy / numpy
+    float64 on the host (``P9_HOST_CHANNELS`` channels of it), then timed
+    with CUDA events beside its bound.  Raises on any failure."""
+    import scipy.fft as sf
+    import scipy.signal as ss
+    import torch
+
+    import llzlab_tpu_torch as lt
+    from llzlab_tpu_torch.ops import compat
+    from llzlab_tpu_torch.ops.dct import dct, dst, idct, idst
+    from llzlab_tpu_torch.ops.mdct import imdct, mdct, mdct_matrix, sine_window
+    from llzlab_tpu_torch.utils.profiling import StageTimer, roofline_report
+
+    hc = P9_HOST_CHANNELS
+    t = int(P9_SECONDS_RATE[0] * P9_SECONDS_RATE[1])
+    fs = float(P9_SECONDS_RATE[1])
+
+    def host(v, n=hc):
+        """The first ``n`` rows of ``v`` (all of a 1-D ``v``) in float64
+        or complex128 on the host."""
+        v = v[:n] if v.dim() > 1 else v
+        return v.detach().cpu().numpy().astype(
+            np.complex128 if v.is_complex() else np.float64)
+
+    def on_dev(what, *outs):
+        for o in outs:
+            if not isinstance(o, torch.Tensor) or o.device != dev:
+                raise RuntimeError(f"{what}: output not on {dev}")
+
+    def check_db(what, ref, out, floor):
+        """``out`` (on ``dev``) against the float64 ``ref`` of its first
+        channels (of all of a 1-D ``out``)."""
+        got = host(out)
+        if got.ndim == 1:
+            ref, got = np.asarray(ref)[None], got[None]
+        got_db = min_channel_snr_db(ref, got)
+        log(f"[phase9] {what}: min-channel SNR vs float64 {got_db:.1f} dB "
+            f"(floor {floor})")
+        if not got_db >= floor:
+            raise RuntimeError(f"{what}: {got_db:.1f} dB below {floor}")
+
+    def check_abs(what, got, want, atol):
+        err = float(np.max(np.abs(got - want)))
+        log(f"[phase9] {what}: max abs error vs float64 {err:.3g} (atol "
+            f"{atol:.3g})")
+        if not err <= atol:
+            raise RuntimeError(f"{what}: max abs error {err} above {atol}")
+
+    def time_op(what, shape, fn, nbytes, flop, method_flop=None, iters=5):
+        """``flop`` counts the function's own least work; ``method_flop``,
+        where given, the work of the method the port runs for it."""
+        ms = cuda_ms(fn, iters=iters, warmup=1)
+        b, by = fir_bound_ms(flop, nbytes)
+        method = ""
+        if method_flop is not None:
+            mb, mby = fir_bound_ms(method_flop, nbytes)
+            method = (f"; the port's method's own bound {mb:.4g} ms ({mby}; "
+                      f"{100.0 * mb / ms:.3g} %)")
+        log(f"[time] phase 9 {what} {shape}: {ms:.4f} ms, bound {b:.4g} ms "
+            f"({by}; {100.0 * b / ms:.3g} % of it){method} on {smi}")
+
+    def fft_flop(n, real=True):
+        return (2.5 if real else 5.0) * n * np.log2(n)
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    c4, c3, c2 = (P9_CHANNELS[k] for k in ("config 4", "config 3",
+                                            "config 2"))
+    x4 = torch.randn((c4, t), generator=gen, device=dev)
+    y4 = 0.5 * x4 + torch.randn((c4, t), generator=gen, device=dev)
+    x3 = torch.randn((c3, t), generator=gen, device=dev)
+    x2 = torch.randn((c2, t), generator=gen, device=dev)
+    log(f"[phase9] inputs: torch.randn on {dev} from torch.Generator seed "
+        f"9, in this order: x {c4}x{t} (config 4), y = 0.5 x + noise, "
+        f"{c3}x{t} (config 3), {c2}x{t} (config 2); float64 checks on the "
+        f"first {hc} channels of each output")
+
+    # ---- config 4's 256 x 480 000: spectrogram, PSDs --------------------
+    n_fft, hop = 2048, 512
+    S = lt.spectrogram(x4, n_fft=n_fft, hop=hop, window="hann")
+    on_dev("spectrogram", S)
+    w = lt.get_window("hann", n_fft, periodic=True)
+    fr = np.lib.stride_tricks.sliding_window_view(host(x4), n_fft,
+                                                  axis=-1)[:, ::hop]
+    check_db(f"spectrogram {tuple(S.shape)} (n_fft {n_fft}, hop {hop}, "
+             f"Hann)", np.abs(np.fft.rfft(fr * w)) ** 2, S,
+             P9_FLOOR_DB["psd"])
+    nf = S.shape[-2]
+    time_op("spectrogram", f"{c4}x{t}",
+            lambda: lt.spectrogram(x4, n_fft=n_fft, hop=hop),
+            4.0 * (x4.numel() + S.numel()), c4 * nf * fft_flop(n_fft))
+    del S, fr
+    kw = dict(fs=fs, nperseg=2048)
+    nseg = (t - 2048) // 1024 + 1
+    timer = StageTimer()
+    f, p = timer.time_fn("welch", lt.welch, x4, **kw)
+    on_dev("welch", p)
+    check_db(f"welch {tuple(p.shape)} (nperseg 2048, 50 %)",
+             ss.welch(host(x4), **kw)[1], p, P9_FLOOR_DB["psd"])
+    _, pxy = lt.csd(x4, y4, **kw)
+    on_dev("csd", pxy)
+    check_db("csd", ss.csd(host(x4), host(y4), **kw)[1], pxy,
+             P9_FLOOR_DB["psd"])
+    _, coh = lt.coherence(x4, y4, **kw)
+    on_dev("coherence", coh)
+    check_db("coherence", ss.coherence(host(x4), host(y4), **kw)[1], coh,
+             P9_FLOOR_DB["psd"])
+    fp, pp = lt.periodogram(x4, fs=fs)
+    on_dev("periodogram", pp)
+    check_db(f"periodogram {tuple(pp.shape)}",
+             ss.periodogram(host(x4), fs=fs)[1], pp, P9_FLOOR_DB["psd"])
+    psd0 = host(p, 1)[0]
+    peaks, _ = compat.find_peaks(psd0, distance=8)
+    want, _ = ss.find_peaks(psd0, distance=8)
+    log(f"[phase9] find_peaks on channel 0's Welch PSD (host): "
+        f"{len(peaks)} peaks, scipy's: {np.array_equal(peaks, want)}")
+    if not np.array_equal(peaks, want):
+        raise RuntimeError("find_peaks != scipy.signal.find_peaks")
+    welch_bytes = 4.0 * x4.numel()
+    time_op("welch", f"{c4}x{t}", lambda: lt.welch(x4, **kw), welch_bytes,
+            c4 * nseg * fft_flop(2048))
+    time_op("csd", f"{c4}x{t}", lambda: lt.csd(x4, y4, **kw),
+            2 * welch_bytes, 2 * c4 * nseg * fft_flop(2048))
+    time_op("coherence", f"{c4}x{t}", lambda: lt.coherence(x4, y4, **kw),
+            2 * welch_bytes, 2 * c4 * nseg * fft_flop(2048))
+    time_op("periodogram", f"{c4}x{t}", lambda: lt.periodogram(x4, fs=fs),
+            4.0 * (x4.numel() + pp.numel()), c4 * fft_flop(t))
+    rep = roofline_report(seconds=timer.totals["welch"],
+                          bytes_moved=welch_bytes,
+                          device_kind=torch.cuda.get_device_name(dev))
+    log(f"[phase9] StageTimer around the first welch call (host clock, "
+        f"synchronised): {timer.report().strip()}; roofline_report: "
+        f"{rep['achieved_gbps']:.1f} of {rep['peak_gbps']:.0f} GB/s")
+    del x4, y4, p, pxy, coh, pp
+
+    # ---- config 3's 64 x 480 000 ----------------------------------------
+    xs = host(x3)
+    a = lt.hilbert(x3)
+    env = lt.analytic_envelope(x3)
+    on_dev("hilbert", a, env)
+    golden = ss.hilbert(xs, axis=-1)
+    check_db(f"hilbert {tuple(a.shape)}", golden, a, P9_FLOOR_DB["hilbert"])
+    check_db("analytic_envelope", np.abs(golden), env,
+             P9_FLOOR_DB["hilbert"])
+    time_op("hilbert", f"{c3}x{t}", lambda: lt.hilbert(x3),
+            4.0 * x3.numel() * 3, 2 * c3 * fft_flop(t, real=False))
+    time_op("analytic_envelope", f"{c3}x{t}",
+            lambda: compat.analytic_envelope(x3), 4.0 * x3.numel() * 2,
+            2 * c3 * fft_flop(t, real=False))
+    del a, env, golden
+    ramp = x3 + torch.linspace(-1.0, 1.0, t, device=dev)
+    d = lt.detrend(ramp)
+    on_dev("detrend", d)
+    check_db("detrend (linear; the input plus a ramp)",
+             ss.detrend(host(ramp), type="linear"), d, P9_FLOOR_DB["detrend"])
+    time_op("detrend", f"{c3}x{t}", lambda: lt.detrend(ramp),
+            4.0 * x3.numel() * 2, 5.0 * x3.numel())
+    del ramp, d
+    sg = lt.savgol_filter(x3, 101, 3)
+    on_dev("savgol_filter", sg)
+    check_db("savgol_filter (101, 3, interp)",
+             ss.savgol_filter(xs, 101, 3, axis=-1), sg, P9_FLOOR_DB["smooth"])
+    nfft = 1 << (t + 200 - 1).bit_length()
+    time_op("savgol_filter", f"{c3}x{t}",
+            lambda: lt.savgol_filter(x3, 101, 3), 4.0 * x3.numel() * 2,
+            3 * c3 * fft_flop(nfft))
+    del sg
+    med = lt.medfilt(x3, 5)
+    on_dev("medfilt", med)
+    check_abs("medfilt (5)", host(med),
+              np.stack([ss.medfilt(r, 5) for r in xs]), P9_MEDFILT_ATOL)
+    # a sorting network of 5: 9 compare-exchanges an output
+    time_op("medfilt", f"{c3}x{t}", lambda: lt.medfilt(x3, 5),
+            4.0 * x3.numel() * 2, 9.0 * x3.numel())
+    del med
+    wn = lt.wiener(x3, 5)
+    on_dev("wiener", wn)
+    check_db("wiener (5)", np.stack([ss.wiener(r, 5) for r in xs]), wn,
+             P9_FLOOR_DB["smooth"])
+    time_op("wiener", f"{c3}x{t}", lambda: lt.wiener(x3, 5),
+            4.0 * x3.numel() * 2, 16.0 * x3.numel())
+    del wn
+    taps = lt.firwin(1024, 0.25, window="hamming")
+    nfft = 1 << (t + 1024 - 1 - 1).bit_length()
+    conv_flop = 3 * c3 * fft_flop(nfft)
+    for what, fn, golden in (
+            ("fftconvolve", lambda: lt.fftconvolve(x3, taps),
+             lambda: ss.fftconvolve(xs, taps[None], axes=-1)),
+            ("correlate", lambda: lt.correlate(x3, taps),
+             lambda: ss.correlate(xs, taps[None], method="fft")),
+            ("compat.convolve (same)",
+             lambda: compat.convolve(x3, taps, mode="same"),
+             lambda: ss.fftconvolve(xs, taps[None], mode="same", axes=-1)),
+            ("oaconvolve (valid)",
+             lambda: compat.oaconvolve(x3, taps, mode="valid"),
+             lambda: ss.oaconvolve(xs, taps[None], mode="valid", axes=-1))):
+        y = fn()
+        on_dev(what, y)
+        check_db(f"{what} {tuple(y.shape)}, config 1's firwin(1024, 0.25)",
+                 golden(), y, P9_FLOOR_DB["conv"])
+        time_op(what, f"{c3}x{t}", fn, 4.0 * (x3.numel() + y.numel()),
+                conv_flop)
+    y = compat.convolve(x3[0], taps, method="direct")
+    on_dev("compat.convolve (direct)", y)
+    check_db("compat.convolve (direct, one row, conv1d)",
+             np.convolve(xs[0], taps), y, P9_FLOOR_DB["conv"])
+    time_op("compat.convolve (direct)", f"1x{t}",
+            lambda: compat.convolve(x3[0], taps, method="direct"),
+            4.0 * (t + y.numel()), 2.0 * 1024 * y.numel())
+    del y
+    m = 4096
+    z = lt.zoom_fft(x3, [900.0, 1100.0], m, fs=fs)
+    on_dev("zoom_fft", z)
+    check_db(f"zoom_fft {tuple(z.shape)} (900-1100 Hz, m {m})",
+             ss.zoom_fft(xs, [900.0, 1100.0], m=m, fs=fs, axis=-1), z,
+             P9_FLOOR_DB["czt"])
+    nfft = 1 << (t + m - 1 - 1).bit_length()
+    time_op("zoom_fft", f"{c3}x{t}",
+            lambda: lt.zoom_fft(x3, [900.0, 1100.0], m, fs=fs),
+            4.0 * x3.numel() + 8.0 * z.numel(),
+            2 * c3 * fft_flop(nfft, real=False))
+    z = lt.czt(x3[0])
+    on_dev("czt", z)
+    check_db(f"czt {tuple(z.shape)} (its defaults: the DFT) vs numpy's "
+             f"FFT", np.fft.fft(xs[0]), z, P9_FLOOR_DB["czt"])
+    nfft = 1 << (2 * t - 1 - 1).bit_length()
+    time_op("czt", f"1x{t}", lambda: lt.czt(x3[0]), 4.0 * t + 8.0 * t,
+            2 * fft_flop(nfft, real=False))
+    del z, x3, xs
+
+    # ---- config 2's 8 x 480 000 -----------------------------------------
+    n = P9_MDCT_N
+    X = mdct(x2, n)
+    on_dev("mdct", X)
+    x2h = host(x2)
+    frames = np.lib.stride_tricks.sliding_window_view(
+        x2h, 2 * n, axis=-1)[:, ::n] * sine_window(2 * n)
+    check_db(f"mdct {tuple(X.shape)} (N {n})", frames @ mdct_matrix(n).T,
+             X, P9_FLOOR_DB["mdct"])
+    del frames
+    back = imdct(X, length=t)
+    on_dev("imdct", back)
+    check_db("imdct(mdct(x)) away from the first and last N",
+             x2h[:, n:-n], back[:, n:-n], P9_FLOOR_DB["mdct"])
+    nfr = X.shape[-2]
+    # the fast MDCT a frame: window and fold 2N samples to N (3N), then an
+    # N/2-point complex FFT between two twiddle passes (6N); the port runs
+    # the dense (N, 2N) product
+    fast_flop = c2 * nfr * (fft_flop(n // 2, real=False) + 9.0 * n)
+    mm_flop = 2.0 * c2 * nfr * 2 * n * n
+    time_op("mdct", f"{c2}x{t}", lambda: mdct(x2, n),
+            4.0 * (x2.numel() + X.numel()), fast_flop, mm_flop)
+    time_op("imdct", f"{c2}x{nfr}x{n}", lambda: imdct(X, length=t),
+            4.0 * (x2.numel() + X.numel()), fast_flop, mm_flop)
+    Xh = host(X)
+    for name, fn, inv, golden in (("dct", dct, idct, sf.dct),
+                                  ("dst", dst, idst, sf.dst)):
+        D = fn(X, type=2, norm="ortho")
+        B = inv(D, type=2, norm="ortho")
+        on_dev(name, D, B)
+        want = golden(Xh, type=2, norm="ortho", axis=-1)
+        check_abs(f"{name} (type 2, ortho) {tuple(D.shape)}", host(D), want,
+                  P9_DCT_ATOL * np.max(np.abs(want)))
+        check_abs(f"i{name}({name}(X))", host(B), Xh,
+                  P9_DCT_ATOL * np.max(np.abs(Xh)))
+        # the fast DCT / DST a row: a real N-point FFT's work; the port
+        # runs the dense (N, N) product
+        for what, f_, v in ((name, fn, X), (f"i{name}", inv, D)):
+            time_op(what, f"{c2}x{nfr}x{n}",
+                    lambda: f_(v, type=2, norm="ortho"),
+                    8.0 * X.numel(), c2 * nfr * fft_flop(n),
+                    2.0 * c2 * nfr * n * n)
+    del X, back, Xh, D, B
+    tu = int(P9_UPFIRDN_SECONDS * P9_SECONDS_RATE[1])
+    h = lt.resample_taps(147, 160, 64)
+    u = compat.upfirdn(h, x2[:, :tu], 147, 160)
+    on_dev("upfirdn", u)
+    log(f"[phase9] cut: upfirdn runs on {P9_UPFIRDN_SECONDS:g} s of config "
+        f"2's signal ({c2}x{tu}), not its 10 s: 147/160 zero-stuffs a row "
+        f"to {(tu - 1) * 147 + 1} samples here, {(t - 1) * 147 + 1} on the "
+        f"whole file (a 2^27-point FFT a row)")
+    check_db(f"upfirdn(resample_taps(147, 160, 64)) {tuple(u.shape)}",
+             ss.upfirdn(h, host(x2[:, :tu]), 147, 160), u,
+             P9_FLOOR_DB["conv"])
+    # the polyphase filter: ceil(len(h) / 147) taps an output sample; the
+    # port zero-stuffs and runs three FFTs at nfft
+    nfft = 1 << ((tu - 1) * 147 + len(h) - 1).bit_length()
+    time_op("upfirdn", f"{c2}x{tu}",
+            lambda: compat.upfirdn(h, x2[:, :tu], 147, 160),
+            4.0 * (c2 * tu + u.numel() + len(h)),
+            2.0 * u.numel() * -(-len(h) // 147), 3 * c2 * fft_flop(nfft))
+    del u, x2
+
+    # ---- the rest: lombscargle, and the host functions once each --------
+    rng = np.random.default_rng(9)
+    tl = np.sort(rng.uniform(0.0, 10.0, 20000))
+    yl = np.sin(2 * np.pi * 1.5 * tl) + 0.1 * rng.standard_normal(20000)
+    wl = np.linspace(0.5, 30.0, 4096)
+    tl_d = torch.from_numpy(tl).to(dev)
+    pl = lt.lombscargle(tl_d, yl, wl)
+    on_dev("lombscargle", pl)
+    want = ss.lombscargle(tl, yl, wl)
+    rel = float(np.max(np.abs(host(pl) - want)) / want.max())
+    log(f"[phase9] lombscargle (4096 frequencies, 20000 uneven samples from "
+        f"numpy's default_rng(9)): max error {rel:.3g} of the peak (JAX "
+        f"package's bound 1e-3)")
+    if not rel < 1e-3:
+        raise RuntimeError(f"lombscargle: {rel} of the peak")
+    # sin and cos of 2wt, of wt - tau, and 8 multiply-adds a (f, n) pair
+    time_op("lombscargle", "4096x20000", lambda: lt.lombscargle(tl_d, yl, wl),
+            8.0 * 3 * 20000 + 4.0 * 4096, 12.0 * 4096 * 20000)
+    b, a = ss.butter(6, 0.3)
+    sos = lt.butter(8, 0.3, output="sos")
+    gd = lt.group_delay(taps, worN=512)[1]
+    host_ok = {
+        "freqz": np.allclose(lt.freqz(taps, worN=512)[1],
+                             ss.freqz(taps, worN=512)[1], atol=1e-12),
+        "sosfreqz": np.allclose(lt.sosfreqz(sos, worN=512)[1],
+                                ss.freqz(*ss.butter(8, 0.3), worN=512)[1],
+                                atol=1e-9),
+        "group_delay": np.allclose(gd[5:100], 511.5, atol=0.1),
+        "butter/cheby1/ellip (ba)": all(np.allclose(
+            ss.freqz(*getattr(lt, n_)(*args, 0.3))[1],
+            ss.freqz(*getattr(ss, n_)(*args, 0.3))[1], atol=1e-9)
+            for n_, args in (("butter", (6,)), ("cheby1", (5, 1.0)),
+                             ("ellip", (4, 1.0, 40.0)))),
+        "tf2zpk/zpk2tf": all(np.allclose(u_, v_) for u_, v_ in zip(
+            lt.zpk2tf(*lt.tf2zpk(b, a)), (b, a))),
+        "sos2tf": all(np.allclose(u_, v_) for u_, v_ in zip(
+            lt.sos2tf(sos), ss.sos2tf(sos))),
+    }
+    log(f"[phase9] host functions against scipy: {host_ok}")
+    if not all(host_ok.values()):
+        raise RuntimeError(f"host functions: {host_ok}")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import scipy.signal as ss
     import torch
@@ -1645,6 +2027,14 @@ def main() -> int:
     log(f"[config3] kernel launches on this path: {got} (none expected)")
     if any(got.values()):
         raise RuntimeError(f"config 3 launched a hand kernel: {got}")
+
+    # ---- phase 9: the remaining ops at the configs' widths ---------------
+    reset_launches()
+    remaining_ops(dev, smi)
+    got = {name: w.launches for name, w in wrappers.items()}
+    log(f"[phase9] kernel launches on this path: {got} (none expected)")
+    if any(got.values()):
+        raise RuntimeError(f"phase 9 launched a hand kernel: {got}")
     log(f"[memory] peak device memory allocated in this run: "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
 

@@ -13,7 +13,7 @@ Layering:
     parallel/ — the rank mesh and the halo exchange between time shards
     pipeline/ — chain composition + streaming
     chains/   — the channelizer, on one device and sharded over time
-    utils/    — checkpoint/resume, configs, metrics
+    utils/    — checkpoint/resume, configs, metrics, stage timers
     io/, cli/ — WAV I/O and the ``fir``, ``iir``, ``resample``, ``stft``
               and ``channelizer`` tools
     calib/    — the IIR engine selection's per-card measurements
@@ -25,7 +25,14 @@ resampling, the fused FIR→resample step, the FFT entry points, STFT /
 iSTFT and the spectral-gain stage (config 4), IIR design and the
 blockwise-scan and matrix-product biquad engines with their calibrated
 selection (config 3), the channelizer with its time-sharded step, and
-the ``fir``, ``iir``, ``resample``, ``stft`` and ``channelizer`` tools.
+the ``fir``, ``iir``, ``resample``, ``stft`` and ``channelizer`` tools;
+FFT convolution and correlation, spectral analysis (frequency response,
+group delay, spectrogram, Hilbert, periodogram, Welch, CSD, coherence),
+smoothing (detrend, Savitzky-Golay, median, Wiener), DCT / DST, MDCT,
+the chirp-Z and zoom FFT, test signals, the scipy-compatible front doors
+(``ops/compat.py``) and the stage timers and roofline report
+(``utils/profiling.py``).  Still to come: the rest of ``parallel/`` and
+``runtime/`` (ROADMAP.md, queue A slice 9).
 """
 
 __version__ = "0.1.0"
@@ -68,6 +75,27 @@ from llzlab_tpu_torch.ops.fir import (  # noqa: F401
 )
 from llzlab_tpu_torch.ops.iir import (  # noqa: F401
     buttord, cheb1ord, cheb2ord, ellipord, tf2sos,
+)
+from llzlab_tpu_torch.ops.analysis import (  # noqa: F401
+    freqz, sosfreqz, group_delay, spectrogram, hilbert, periodogram,
+    welch, csd, coherence,
+)
+from llzlab_tpu_torch.ops.convolve import fftconvolve, correlate  # noqa: F401
+from llzlab_tpu_torch.ops.smooth import (  # noqa: F401
+    detrend, savgol_coeffs, savgol_filter, medfilt, wiener,
+)
+from llzlab_tpu_torch.ops.dct import dct, idct, dst, idst  # noqa: F401
+from llzlab_tpu_torch.ops.chirpz import czt, zoom_fft  # noqa: F401
+from llzlab_tpu_torch.ops.signals import (  # noqa: F401
+    chirp, square, sawtooth, gausspulse,
+)
+# scipy.signal-compatible front doors (ops/compat.py): designers with
+# ba/zpk/sos outputs, representation conversions, and utilities
+from llzlab_tpu_torch.ops.compat import (  # noqa: F401
+    butter, cheby1, cheby2, ellip, bessel, iirfilter, iirdesign,
+    bilinear_zpk, zpk2tf, tf2zpk, zpk2sos, sos2tf, sos2zpk, normalize,
+    lfiltic, deconvolve, freqs, convolve, oaconvolve, upfirdn,
+    analytic_envelope, unit_impulse, lombscargle, find_peaks,
 )
 from llzlab_tpu_torch.ops.transform import (  # noqa: F401
     fft,

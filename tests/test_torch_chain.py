@@ -179,7 +179,9 @@ def test_port_imports_no_jax():
         "'utils.config', 'utils.metrics', 'io.wav', 'cli.common', "
         "'cli.fir', 'cli.resample', 'ops.spectral', 'cli.stft', "
         "'cli.channelizer', 'ops.iir', 'ops.iir_matmul', 'ops.iir_select', "
-        "'cli.iir'):\n"
+        "'cli.iir', 'ops.convolve', 'ops.signals', 'ops.dct', 'ops.chirpz', "
+        "'ops.analysis', 'ops.mdct', 'ops.smooth', 'ops.compat', "
+        "'utils.profiling'):\n"
         "    assert 'llzlab_tpu_torch.' + needed in names, needed\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"

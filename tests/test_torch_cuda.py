@@ -607,3 +607,112 @@ def test_sosfilt_auto_reads_the_card_artifact():
     sos = _eq_and_butter()["eq"]
     x = torch.randn((4, 9000), device="cuda")
     assert iir_select.sosfilt_auto(sos, x).is_cuda
+
+
+def _remaining_ops():
+    """Queue A slice 7's device ops on two seed-made inputs, with the
+    floor each holds against its own run on the CPU (``chip_smoke.py``'s
+    phase-9 floors against float64; the two float32 runs differ by less)."""
+    import importlib
+
+    import llzlab_tpu_torch as lt
+    from llzlab_tpu_torch.ops import compat
+
+    mdct = importlib.import_module("llzlab_tpu_torch.ops.mdct")
+    taps = torch.from_numpy(firwin(129, 0.25).astype(np.float32))
+    fl = chip_smoke.P9_FLOOR_DB
+    fs = 48000.0
+
+    def on(v, x):
+        return v.to(x.device)
+
+    return {
+        "spectrogram": (lambda x, y: lt.spectrogram(x, n_fft=256, hop=64),
+                        fl["psd"]),
+        "welch": (lambda x, y: lt.welch(x, fs=fs, nperseg=256)[1],
+                  fl["psd"]),
+        "csd": (lambda x, y: lt.csd(x, y, fs=fs, nperseg=256)[1],
+                fl["psd"]),
+        "coherence": (lambda x, y: lt.coherence(x, y[:, :3000], fs=fs,
+                                                nperseg=256)[1], fl["psd"]),
+        "periodogram": (lambda x, y: lt.periodogram(x, fs=fs)[1],
+                        fl["psd"]),
+        "hilbert": (lambda x, y: lt.hilbert(x), fl["hilbert"]),
+        "analytic_envelope": (lambda x, y: lt.analytic_envelope(x, 4100),
+                              fl["hilbert"]),
+        "detrend": (lambda x, y: lt.detrend(x), fl["detrend"]),
+        "savgol_filter": (lambda x, y: lt.savgol_filter(x, 101, 3),
+                          fl["smooth"]),
+        "savgol_filter mirror": (lambda x, y: lt.savgol_filter(
+            x, 11, 3, mode="mirror"), fl["smooth"]),
+        "medfilt": (lambda x, y: lt.medfilt(x, 5), None),
+        "wiener": (lambda x, y: lt.wiener(x, 5), fl["smooth"]),
+        "fftconvolve": (lambda x, y: lt.fftconvolve(x, on(taps, x)),
+                        fl["conv"]),
+        "correlate": (lambda x, y: lt.correlate(x, y[0, :50]), fl["conv"]),
+        "convolve direct": (lambda x, y: compat.convolve(
+            x[0], on(taps, x), method="direct"), fl["conv"]),
+        "oaconvolve": (lambda x, y: compat.oaconvolve(x, on(taps, x),
+                                                      mode="valid"),
+                       fl["conv"]),
+        "upfirdn": (lambda x, y: compat.upfirdn(
+            lt.resample_taps(147, 160, 16), x[:, :500], 147, 160),
+                    fl["conv"]),
+        "zoom_fft": (lambda x, y: lt.zoom_fft(x, [900.0, 1100.0], 512,
+                                              fs=fs), fl["czt"]),
+        "czt": (lambda x, y: lt.czt(x[0]), fl["czt"]),
+        "mdct": (lambda x, y: mdct.mdct(x, 256), fl["mdct"]),
+        "imdct": (lambda x, y: mdct.imdct(mdct.mdct(x, 256)), fl["mdct"]),
+        "dct": (lambda x, y: lt.dct(x.reshape(4, 16, 256), type=2,
+                                    norm="ortho"), fl["mdct"]),
+        "idst": (lambda x, y: lt.idst(x.reshape(4, 16, 256), type=3),
+                 fl["mdct"]),
+        "lombscargle": (lambda x, y: lt.lombscargle(
+            torch.cumsum(x[0].abs(), 0) / 1000.0, y[0], on(
+                torch.linspace(0.5, 30.0, 512), x)), fl["psd"]),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_remaining_ops()))
+def test_remaining_ops_on_the_card_match_their_cpu_runs(name):
+    """Each op on a CUDA tensor returns a CUDA tensor that agrees with the
+    port's own run of it on the CPU (bitwise for the median)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    fn, floor = _remaining_ops()[name]
+    rng = np.random.default_rng(88)
+    x = torch.from_numpy(rng.standard_normal((4, 4096)).astype(np.float32))
+    y = torch.from_numpy((0.5 * x.numpy() + rng.standard_normal(
+        (4, 4096))).astype(np.float32))
+    cpu = fn(x, y)
+    card = fn(x.cuda(), y.cuda())
+    assert card.is_cuda and card.shape == cpu.shape
+    assert card.dtype == cpu.dtype
+    if floor is None:
+        assert torch.equal(card.cpu(), cpu)
+        return
+    snr = chip_smoke.min_channel_snr_db(cpu.reshape(1, -1).numpy(),
+                                        card.cpu().reshape(1, -1).numpy())
+    assert snr >= floor, snr
+
+
+@pytest.mark.cuda
+def test_clear_tables_gives_back_the_card_memory_of_a_long_dct():
+    """A 4096-point DCT holds its 64 MiB float32 matrix on the card until
+    ``ops.clear_tables`` drops it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    import llzlab_tpu_torch as lt
+
+    lt.ops.clear_tables()
+    x = torch.randn((2, 4096), device="cuda")
+    torch.matmul(x, x.T)  # cuBLAS's workspace, kept for the process
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    y = lt.dct(x, type=2, norm="ortho")
+    del y
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - before >= 4096 * 4096 * 4
+    assert lt.ops.clear_tables() == 1
+    assert torch.cuda.memory_allocated() == before

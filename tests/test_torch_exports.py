@@ -16,12 +16,9 @@ import llzlab_tpu_torch
 import llzlab_tpu_torch.ops
 from llzlab_tpu_torch.pipeline import Chain
 
-#: modules still to be ported, by the slice of ROADMAP.md queue A
-TO_COME = {
-    "ops.convolve": "slice 7", "ops.signals": "slice 7", "ops.dct": "slice 7",
-    "ops.chirpz": "slice 7", "ops.analysis": "slice 7", "ops.mdct": "slice 7",
-    "ops.smooth": "slice 7", "ops.compat": "slice 7",
-}
+#: modules still to be ported, by the slice of ROADMAP.md queue A (none
+#: of the modules that export names is left)
+TO_COME: dict = {}
 #: names of ported modules that the port leaves out (ROADMAP.md, "Not to
 #: port"): the TPU's matrix-product FFT engines; cuFFT takes their place
 LEFT_OUT = {"fft_matmul", "rfft_matmul", "irfft_matmul"}
@@ -70,7 +67,10 @@ def test_the_lists_name_only_what_the_reference_has():
     assert LEFT_OUT <= names
     for module in ("ops.spectral", "ops.window", "ops.fused_chain",
                    "ops.transform", "pipeline.chain", "ops.iir",
-                   "ops.iir_matmul", "ops.iir_select"):
+                   "ops.iir_matmul", "ops.iir_select", "ops.convolve",
+                   "ops.signals", "ops.dct", "ops.chirpz", "ops.analysis",
+                   "ops.mdct", "ops.smooth", "ops.compat",
+                   "utils.profiling"):
         assert _ported(module)
         importlib.import_module(f"llzlab_tpu_torch.{module}")
 
