@@ -102,7 +102,32 @@ checks them:
    card and is held against scipy / numpy float64 on 4 channels at the JAX
    package's floors, then timed with CUDA events beside its bound;
    ``StageTimer`` and ``roofline_report`` around the first ``welch``.  No
-   hand kernel lies on this path: the launch counts of all four stay 0.
+   hand kernel lies on this path: the launch counts of all four stay 0;
+10. the sharded modules (``parallel/``, ``runtime/``) on ranks of the
+   card: the channelizer on a (2, 2) ``(channel, time)`` mesh (fused through
+   B1, block2 through B2, both precisions, two super-blocks against
+   unsharded streaming, states bitwise), ``halo_overlap`` for both methods
+   with ``ppermute`` and ``rdma`` (B3) against the exact step,
+   ``frames="a2a"`` at 1024 channels (B1 + B3) and with ``rdma_fused`` at
+   256 (B4 + B3) at per-rank lengths whose frames straddle the ranks,
+   against the unsharded one-shot step, and the ``channelizer`` tool on a
+   (2, 2) mesh; ``fft_frames_sharded`` against numpy float64; config 1
+   through ``fir_filter_sharded`` (ols, and block2 through B2) streamed in
+   two super-blocks bitwise unsharded streaming, and
+   ``fir_filter_tap_parallel``; the headline's 64 channels through
+   ``fir_filter_sharded(block2)`` on (2, 2); config 2 through
+   ``resample_sharded``; config 3 through ``sosfilt_sharded`` on (1, 4) and
+   (2, 2) against ``sosfilt``, streamed bitwise one call at the same
+   ``T_loc``; ``stage_pipeline`` of 4 stages bitwise the serial
+   composition; config 4 through ``spectral_gain_sharded`` (both engines,
+   479 232 samples, the one cut); the heartbeat, with a NaN payload; and
+   a NCCL process group of one (the global mesh, a heartbeat through
+   ``all_reduce``, a channelizer step bitwise the same step on a local
+   mesh).  Per path: the launch counts (each kernel nonzero exactly where
+   the path meets it), the CUDA-event ms of the sharded call and of its
+   unsharded counterpart, ``collective_traffic``'s bytes equal to the
+   analytic model, and for ``halo_overlap`` and the pipeline the
+   profiler's device time summed over streams against the event time.
 
 Every phase raises on failure.  The last line of stdout is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -198,6 +223,32 @@ P9_MDCT_N = 960
 #: upfirdn runs on this much of config 2's signal, the one cut of phase 9:
 #: 147/160 zero-stuffs a 10 s row to 70.6 M samples, a 2^27-point FFT a row
 P9_UPFIRDN_SECONDS = 1.0
+
+#: phase 10: the channelizer's (channel, time) mesh, (2, 2) ranks of the
+#: card: 1024 channels of 2 x 655 360 samples
+P10_CZ_MESH = (2, 2)
+#: frames="a2a": the per-rank lengths nearest 327 680 that are multiples
+#: of block_multiple("a2a") and not of block_multiple("local"), so that
+#: frames straddle the ranks (fused at 1024 channels, block2 at 256)
+P10_A2A_T_LOC = {"fused": 307200, "block2": 322560}
+#: the channelizer tool on a (2, 2) mesh: 64 channels, the shortest input
+#: its 2048-point frames take on two time ranks (2 x 983 040 samples)
+P10_CZ_TOOL = ("--synth", "64", "--seconds", "40.96", "--mesh-channel", "2",
+               "--mesh-time", "2")
+#: config 4 over (1, 4): the nearest length below 480 000 whose quarter is
+#: a multiple of the hop (the one cut of phase 10)
+P10_SPECTRAL_T = 479232
+#: stage_pipeline's micro-block: 480 000 = 50 x 9 600
+P10_MICRO_BLOCK = 9600
+#: floors: frames="a2a" against the unsharded one-shot step, halo_overlap
+#: against the exact step (tests/parallel/test_channelizer_sharded.py:194,
+#: :303), the sharded IIR against sosfilt (tests/parallel/
+#: test_sharded_ops.py:111), the sharded spectral chain's interior
+#: against the unsharded one for both engines (tests/parallel/
+#: test_spectral_sp.py:29), the tap-parallel FIR against fir_filter
+#: (tests/parallel/test_tp_pp.py:20), fft_frames_sharded against numpy float64 (test_sharded_ops.py:178)
+A2A_FLOOR_DB, OVERLAP_FLOOR_DB, IIR_SHARDED_FLOOR_DB = 110.0, 135.0, 135.0
+SPECTRAL_SP_FLOOR_DB, TAP_FLOOR_DB, FFT_FRAMES_FLOOR_DB = 130.0, 120.0, 110.0
 
 
 def log(msg: str) -> None:
@@ -1329,6 +1380,535 @@ def remaining_ops(dev, smi):
     torch.cuda.empty_cache()
 
 
+def parallel_paths(dev, smi, wrappers):
+    """Phase 10: every path of the sharded modules (``parallel/`` and
+    ``runtime/``) on ranks of the card ``dev`` at the configs' widths,
+    each against its unsharded counterpart; per path the kernel launch
+    counts (each kernel nonzero exactly where the path meets it), the
+    CUDA-event ms of the sharded call and of the unsharded one, and
+    ``collective_traffic``'s bytes beside the analytic model.  Returns
+    ``{kernel: {path: launches}}``.  Raises on any failure."""
+    import socket
+    import tempfile
+
+    import torch
+
+    from llzlab_tpu_torch import (Channelizer, SpectralGainStage, firwin,
+                                  peaking_eq_sos, resample_taps, sosfilt)
+    from llzlab_tpu_torch.cli import channelizer as cz_cli
+    from llzlab_tpu_torch.kernels.halo_ring import check_exchanges
+    from llzlab_tpu_torch.ops.fir import fir_filter, fir_state_len
+    from llzlab_tpu_torch.ops.resample import resample_poly
+    from llzlab_tpu_torch.parallel import sharded_ops as so
+    from llzlab_tpu_torch.parallel.mesh import (CHANNEL_MAJOR, TIME_AXIS,
+                                                DspMesh, channel_time_spec,
+                                                gather, make_dsp_mesh, shard)
+    from llzlab_tpu_torch.parallel.spectral_sp import spectral_gain_sharded
+    from llzlab_tpu_torch.parallel.stage_pp import (make_stage_mesh,
+                                                    stage_pipeline)
+    from llzlab_tpu_torch.parallel.tap_tp import fir_filter_tap_parallel
+    from llzlab_tpu_torch.runtime import distributed as rd
+    from llzlab_tpu_torch.runtime.health import heartbeat
+    from llzlab_tpu_torch.runtime.profiler import profile_calls
+    from llzlab_tpu_torch.utils.profiling import collective_traffic
+
+    by_path = {name: {} for name in wrappers}
+    B1, B2, B3, B4 = ("fused_fir_resample", "block2_fir", "halo_ring",
+                      "halo_fir_fused")
+    gen = torch.Generator(device=dev).manual_seed(10)
+
+    def run_path(path, expect, fn):
+        """``fn()`` with the launch counts set to 0 before and read after;
+        each kernel must have run exactly where ``expect`` names it."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize(dev)
+        got = {n: w.launches for n, w in wrappers.items()}
+        log(f"[phase10] {path}: kernel launches {got}")
+        wrong = [n for n, k in got.items() if (n in expect) != (k > 0)]
+        if wrong:
+            raise RuntimeError(f"phase 10 {path}: launches {got}, expected "
+                               f"nonzero exactly on {sorted(expect)}")
+        for n, k in got.items():
+            if k:
+                by_path[n][f"phase10 {path}"] = k
+        return out
+
+    def traffic(path, fn, model):
+        got = collective_traffic(fn)
+        kinds = sorted({o["op"] for o in got["ops"]})
+        log(f"[phase10] {path}: collective_traffic {got['total_bytes']} B "
+            f"({', '.join(kinds) or 'none'}), analytic model {model} B")
+        if got["total_bytes"] != model:
+            raise RuntimeError(f"phase 10 {path}: traffic "
+                               f"{got['total_bytes']} B != model {model} B")
+
+    def times(path, sharded_fn, plain_fn, what="unsharded", iters=3):
+        ms = cuda_ms(sharded_fn, iters=iters, warmup=1)
+        pms = cuda_ms(plain_fn, iters=iters, warmup=1)
+        log(f"[time] phase10 {path}: sharded {ms:.3f} ms, {what} {pms:.3f} "
+            f"ms on {smi}")
+        return ms, pms
+
+    def check(path, snr, floor):
+        log(f"[phase10] {path}: {snr:.1f} dB (floor {floor})")
+        if not snr >= floor:
+            raise RuntimeError(f"phase 10 {path}: {snr:.1f} dB below {floor}")
+
+    def equal(path, a, b, what):
+        if not (a.shape == b.shape and torch.equal(a, b)):
+            raise RuntimeError(f"phase 10 {path}: != {what} bitwise")
+        log(f"[phase10] {path}: == {what} bitwise")
+
+    # ---- the channelizer at 1024 channels -----------------------------
+    chans = {m: Channelizer(fir_method=m, device=dev)
+             for m in ("fused", "block2")}
+    t_loc = chans["fused"].block_multiple()
+    nc, nt = P10_CZ_MESH
+    t2 = t_loc * 4 // nt
+    x = torch.randn((CZ_CHANNELS, 4 * t_loc), generator=gen, device=dev)
+    mesh22 = make_dsp_mesh(nc, nt, devices=[dev] * (nc * nt))
+    parts22 = shard(x, mesh22)
+    for mode in ("highest", "high"):
+        for m, kern in (("fused", B1), ("block2", B2)):
+            ch, path = chans[m], f"channelizer {nc}x{nt} {m} {mode}"
+            with matmul_precision(mode):
+                step = ch.sharded_step(mesh22)
+                st = ch.init_state(CZ_CHANNELS)
+                st_ref = ch.init_state(CZ_CHANNELS)
+                for i in range(2):  # the second consumes the carried state
+                    spec, st = run_path(f"{path} super-block {i + 1}",
+                                        {kern}, lambda: step(parts22, st))
+                    got = gather(spec, mesh22, dim=1)
+                    del spec
+                    ref = []
+                    for j in range(nt):
+                        s_, st_ref = ch.step(x[:, j * t2:(j + 1) * t2],
+                                             st_ref)
+                        ref.append(s_)
+                    ref = torch.cat(ref, dim=1)
+                    check(f"{path} super-block {i + 1} vs unsharded "
+                          f"streaming", device_snr_db(ref, got),
+                          SHARDED_FLOOR_DB)
+                    del got, ref
+                for a, b in zip(st, st_ref):
+                    equal(f"{path} state", a, b, "unsharded streaming's")
+                if mode == "highest":
+                    h = ch.h_fir + ch.h_rs
+                    traffic(path, lambda: step(parts22, ch.init_state(
+                        CZ_CHANNELS)), nt * CZ_CHANNELS * h * 4)
+                    times(path, lambda: step(parts22, st),
+                          lambda: ch.step(x, ch.init_state(CZ_CHANNELS)),
+                          "unsharded one-shot step")
+            torch.cuda.empty_cache()
+    del parts22
+
+    # fft_frames_sharded on the channelizer's input, (2, 2), 2048 points
+    parts22 = shard(x, mesh22)
+    path = "fft_frames_sharded 2048"
+    spec = run_path(path, set(), lambda: so.fft_frames_sharded(
+        parts22, 2048, mesh22, window="hann"))
+    got = gather(spec, mesh22, dim=1)[:CZ_GOLDEN_CHANNELS].cpu().numpy()
+    w = np.hanning(2049)[:-1]
+    xh = x[:CZ_GOLDEN_CHANNELS].cpu().numpy().astype(np.float64)
+    ref = np.fft.rfft(xh.reshape(CZ_GOLDEN_CHANNELS, -1, 2048) * w, axis=-1)
+    check(f"{path} vs numpy f64 ({CZ_GOLDEN_CHANNELS} channels)",
+          min_channel_snr_db(ref, got), FFT_FRAMES_FLOOR_DB)
+    traffic(path, lambda: so.fft_frames_sharded(parts22, 2048, mesh22,
+                                                window="hann"), 0)
+    times(path, lambda: so.fft_frames_sharded(parts22, 2048, mesh22,
+                                              window="hann"),
+          lambda: torch.fft.rfft(x.reshape(CZ_CHANNELS, -1, 2048)
+                                 * torch.hann_window(2048, device=dev)))
+    del parts22, spec, got
+    torch.cuda.empty_cache()
+
+    # halo_overlap on the 4-rank time mesh, against the exact step
+    mesh4 = DspMesh([dev] * 4, (TIME_AXIS,))
+    parts4 = shard(x, mesh4)
+    with matmul_precision("highest"):
+        for m, halo in (("fused", "ppermute"), ("fused", "rdma"),
+                        ("block2", "ppermute"), ("block2", "rdma")):
+            ch = chans[m]
+            path = f"halo_overlap {m} {halo}"
+            expect = {B1 if m == "fused" else B2} | (
+                {B3} if halo == "rdma" else set())
+            over = ch.sharded_step(mesh4, halo=halo, halo_overlap=True)
+            exact = ch.sharded_step(mesh4, halo=halo)
+            st_o = st_e = ch.init_state(CZ_CHANNELS)
+            for i in range(2):
+                spec_o, st_o = run_path(f"{path} super-block {i + 1}", expect,
+                                        lambda: over(parts4, st_o))
+                spec_e, st_e = exact(parts4, st_e)
+                check_exchanges(mesh4)
+                check(f"{path} super-block {i + 1} vs the exact step",
+                      device_snr_db(spec_e, spec_o), OVERLAP_FLOOR_DB)
+                del spec_o, spec_e
+            st0 = ch.init_state(CZ_CHANNELS)
+            ms_o, ms_e = times(path, lambda: over(parts4, st0),
+                               lambda: exact(parts4, st0), "exact step")
+            po = profile_calls(lambda: over(parts4, st0))
+            pe = profile_calls(lambda: exact(parts4, st0))
+            check_exchanges(mesh4)
+            for what, p in (("overlapped", po), ("exact", pe)):
+                if p is None:
+                    log(f"[phase10] {path} {what}: the profiler saw no "
+                        f"device time")
+                    continue
+                log(f"[phase10] {path} {what}: device busy "
+                    f"{p.busy_ms:.3f} ms summed over streams in "
+                    f"{p.event_ms:.3f} ms of events (concurrency "
+                    f"{p.busy_ms / p.event_ms:.2f}), {p.kernels:.0f} "
+                    f"kernels, {p.copies:.0f} copies, on {smi}")
+            torch.cuda.empty_cache()
+
+        # frames="a2a" on the 4-rank time mesh: fused through B3
+        ch = chans["fused"]
+        ta = P10_A2A_T_LOC["fused"]
+        xa = x[:, :4 * ta]
+        pa = shard(xa, mesh4)
+        path = "a2a fused rdma"
+        step = ch.sharded_step(mesh4, halo="rdma", frames="a2a")
+        spec, _ = run_path(path, {B1, B3}, lambda: step(
+            pa, ch.init_state(CZ_CHANNELS)))
+        check_exchanges(mesh4)
+        got = gather(spec, mesh4, spec=CHANNEL_MAJOR)
+        del spec
+        ref, _ = ch.step(xa, ch.init_state(CZ_CHANNELS))
+        if got.shape != ref.shape:
+            raise RuntimeError(f"{path}: {tuple(got.shape)} != "
+                               f"{tuple(ref.shape)}")
+        check(f"{path} {tuple(got.shape)} vs the unsharded one-shot step",
+              device_snr_db(ref, got), A2A_FLOOR_DB)
+        del got, ref
+        tz = 4 * ta * UP // DOWN
+        traffic(path, lambda: step(pa, ch.init_state(CZ_CHANNELS)),
+                4 * CZ_CHANNELS * ch.h_fir * 4 + CZ_CHANNELS * tz * 4)
+        check_exchanges(mesh4)
+        st0 = ch.init_state(CZ_CHANNELS)
+        times(path, lambda: step(pa, st0),
+              lambda: ch.step(xa, st0), "unsharded one-shot step")
+        check_exchanges(mesh4)
+        del pa, xa, parts4
+        torch.cuda.empty_cache()
+
+        # rdma_fused with frames="a2a" at 256 channels: B4 + B3
+        ch = chans["block2"]
+        ta = P10_A2A_T_LOC["block2"]
+        xa = x[:CZ_FUSED_CHANNELS, :4 * ta]
+        pa = shard(xa, mesh4)
+        path = "a2a block2 rdma_fused"
+        step = ch.sharded_step(mesh4, halo="rdma_fused", frames="a2a")
+        spec, _ = run_path(path, {B4, B3}, lambda: step(
+            pa, ch.init_state(CZ_FUSED_CHANNELS)))
+        check_exchanges(mesh4)
+        got = gather(spec, mesh4, spec=CHANNEL_MAJOR)
+        ref, _ = ch.step(xa, ch.init_state(CZ_FUSED_CHANNELS))
+        check(f"{path} {tuple(got.shape)} vs the unsharded one-shot step",
+              device_snr_db(ref, got), A2A_FLOOR_DB)
+        tz = 4 * ta * UP // DOWN
+        traffic(path, lambda: step(pa, ch.init_state(CZ_FUSED_CHANNELS)),
+                4 * CZ_FUSED_CHANNELS * (ch.h_fir + ch.h_rs) * 4
+                + CZ_FUSED_CHANNELS * tz * 4)
+        check_exchanges(mesh4)
+        st0 = ch.init_state(CZ_FUSED_CHANNELS)
+        times(path, lambda: step(pa, st0), lambda: ch.step(xa, st0),
+              "unsharded one-shot step")
+        check_exchanges(mesh4)
+        del pa, xa, spec, got, ref, x
+        torch.cuda.empty_cache()
+
+    # the channelizer tool on a (2, 2) mesh against Channelizer.step
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "spec.npz")
+        run_path("channelizer tool 2x2", set(), lambda: cz_cli.main(
+            ["-o", out] + list(CZ_TOOL_ARGS) + list(P10_CZ_TOOL)))
+        with np.load(out) as z:
+            spec = torch.from_numpy(z["spectra"]).to(dev)
+    args = list(CZ_TOOL_ARGS) + list(P10_CZ_TOOL)
+
+    def arg(name, default):
+        return args[args.index(name) + 1] if name in args else default
+
+    c_t = int(arg("--synth", 8))
+    t_t = int(float(arg("--seconds", 2.0)) * 48000)
+    xt = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (c_t, t_t)).astype(np.float32)).to(dev)
+    ch = Channelizer(fir_taps=firwin(int(arg("--fir-taps", 1024)), 0.4,
+                                     window="hamming"),
+                     fft_n=int(arg("--fft", 2048)), fir_method="ols",
+                     device=dev)
+    t_use = t_t // (ch.block_multiple() * 2) * ch.block_multiple() * 2
+    xt = xt[:, :t_use]
+    ref, _ = ch.step(xt, ch.init_state(c_t))
+    check(f"channelizer tool 2x2 {tuple(spec.shape)} vs Channelizer.step",
+          device_snr_db(ref, spec), SHARDED_FLOOR_DB)
+    del spec, ref, xt
+    torch.cuda.empty_cache()
+
+    # ---- config 1: fir_filter_sharded and the tap-parallel FIR ----------
+    cfg1 = load_config("fir_lowpass_1ch")
+    f1 = cfg1.fir
+    t1 = int(cfg1.sample_rate * cfg1.seconds)
+    taps1 = firwin(f1.numtaps, f1.cutoff[0], window=f1.window,
+                   pass_zero=f1.kind)
+    x1 = torch.randn((cfg1.channels, t1), generator=gen, device=dev)
+    mesh14 = make_dsp_mesh(1, 4, devices=[dev] * 4)
+
+    def fir_stream(method, mesh, x, taps, n_super):
+        """``x`` through ``fir_filter_sharded`` in ``n_super`` super-blocks,
+        the state carried; returns the output joined and the state."""
+        tb = x.shape[-1] // n_super
+        st, outs = None, []
+        for i in range(n_super):
+            y, st = so.fir_filter_sharded(
+                shard(x[:, i * tb:(i + 1) * tb], mesh), taps, mesh,
+                method=method, state=st, return_state=True)
+            outs.append(gather(y, mesh))
+        return torch.cat(outs, dim=-1), st
+
+    def fir_golden(method, x, taps, t_l):
+        zi, outs = None, []
+        for j in range(x.shape[-1] // t_l):
+            y, zi = fir_filter(x[:, j * t_l:(j + 1) * t_l], taps,
+                               method=method, zi=zi, return_zf=True)
+            outs.append(y)
+        return torch.cat(outs, dim=-1), zi
+
+    for method, expect in (("ols", set()), ("block2", {B2})):
+        path = f"config 1 fir_filter_sharded {method} 1x4"
+        got, st = run_path(path, expect, lambda: fir_stream(
+            method, mesh14, x1, taps1, 2))
+        ref, zf = fir_golden(method, x1, taps1, t1 // 8)
+        equal(f"{path}, 2 super-blocks", got, ref,
+              "unsharded streaming at T_loc")
+        equal(f"{path} state", st, zf, "unsharded streaming's")
+        h = fir_state_len(len(taps1), method=method)
+        p1 = shard(x1, mesh14)
+        traffic(path, lambda: so.fir_filter_sharded(p1, taps1, mesh14,
+                                                    method=method),
+                2 * 3 * cfg1.channels * h * 4)
+        times(path, lambda: so.fir_filter_sharded(p1, taps1, mesh14,
+                                                  method=method),
+              lambda: fir_filter(x1, taps1, method=method))
+    path = "config 1 fir_filter_tap_parallel 4 ranks"
+    got = run_path(path, set(), lambda: fir_filter_tap_parallel(
+        x1, taps1, mesh14))
+    ref = fir_filter(x1, taps1, method="direct")
+    for g in got:
+        check(f"{path} vs fir_filter", device_snr_db(ref, g), TAP_FLOOR_DB)
+    traffic(path, lambda: fir_filter_tap_parallel(x1, taps1, mesh14),
+            4 * x1.numel() * 4)
+    times(path, lambda: fir_filter_tap_parallel(x1, taps1, mesh14),
+          lambda: fir_filter(x1, taps1, method="direct"))
+
+    # the headline's 64 channels through B2 on a (2, 2) mesh
+    taps_h = firwin(NTAPS, CUTOFF, window="hamming")
+    xh = torch.randn((CHANNELS, 2 * BLOCK_T), generator=gen, device=dev)
+    path = f"headline {CHANNELS}ch fir_filter_sharded block2 2x2"
+    got, st = run_path(path, {B2}, lambda: fir_stream(
+        "block2", mesh22, xh, taps_h, 1))
+    ref, zf = fir_golden("block2", xh, taps_h, BLOCK_T)
+    equal(path, got, ref, "unsharded streaming at T_loc")
+    equal(f"{path} state", st, zf, "unsharded streaming's")
+    ph = shard(xh, mesh22)
+    traffic(path, lambda: so.fir_filter_sharded(ph, taps_h, mesh22,
+                                                method="block2"),
+            2 * CHANNELS * 1024 * 4)
+    times(path, lambda: so.fir_filter_sharded(ph, taps_h, mesh22,
+                                              method="block2"),
+          lambda: fir_filter(xh, taps_h, method="block2"))
+    del xh, ph, got, ref
+
+    # ---- config 2: resample_sharded on (1, 4) ---------------------------
+    cfg2 = load_config("resample_8ch")
+    rc = cfg2.resample
+    t2c = int(cfg2.sample_rate * cfg2.seconds)
+    rtaps = resample_taps(rc.up, rc.down, rc.taps_per_phase,
+                          window=("kaiser", rc.kaiser_beta))
+    x2 = torch.randn((cfg2.channels, t2c), generator=gen, device=dev)
+    path = "config 2 resample_sharded 1x4"
+    y2 = run_path(path, set(), lambda: gather(so.resample_sharded(
+        shard(x2, mesh14), rc.up, rc.down, mesh14, taps=rtaps), mesh14))
+    zi, ref = None, []
+    for j in range(4):
+        yj, zi = resample_poly(x2[:, j * (t2c // 4):(j + 1) * (t2c // 4)],
+                               rc.up, rc.down, taps=rtaps, zi=zi,
+                               return_zf=True)
+        ref.append(yj)
+    equal(path, y2, torch.cat(ref, dim=-1), "unsharded streaming at T_loc")
+    p2 = shard(x2, mesh14)
+    k2 = len(rtaps) // rc.up
+    traffic(path, lambda: so.resample_sharded(p2, rc.up, rc.down, mesh14,
+                                              taps=rtaps),
+            2 * 3 * cfg2.channels * (k2 - 1) * 4)
+    times(path, lambda: so.resample_sharded(p2, rc.up, rc.down, mesh14,
+                                            taps=rtaps),
+          lambda: resample_poly(x2, rc.up, rc.down, taps=rtaps))
+
+    # ---- config 3: sosfilt_sharded on (1, 4) and (2, 2) ----------------
+    cfg3 = load_config("iir_eq_64ch")
+    ic = cfg3.iir
+    t3 = int(cfg3.sample_rate * cfg3.seconds)
+    sos = peaking_eq_sos(ic.freqs, ic.gains_db, ic.sample_rate, q=ic.q)
+    x3 = torch.randn((cfg3.channels, t3), generator=gen, device=dev)
+    y_ref = sosfilt(sos, x3, block_size=ic.block_size)
+    for shape in ((1, 4), (2, 2)):
+        mesh = make_dsp_mesh(*shape, devices=[dev] * 4)
+        wide = make_dsp_mesh(shape[0], 2 * shape[1],
+                             devices=[dev] * 8)  # the same T_loc, one call
+        path = f"config 3 sosfilt_sharded {shape[0]}x{shape[1]}"
+        p3 = shard(x3, mesh)
+        y = run_path(path, set(), lambda: gather(so.sosfilt_sharded(
+            p3, sos, mesh, block_size=ic.block_size), mesh))
+        check(f"{path} vs sosfilt", device_snr_db(y_ref, y),
+              IIR_SHARDED_FLOOR_DB)
+        half = t3 // 2
+        a, st = so.sosfilt_sharded(shard(x3[:, :half], mesh), sos, mesh,
+                                   block_size=ic.block_size,
+                                   return_state=True)
+        b = so.sosfilt_sharded(shard(x3[:, half:], mesh), sos, mesh,
+                               block_size=ic.block_size, state=st)
+        one = so.sosfilt_sharded(shard(x3, wide), sos, wide,
+                                 block_size=ic.block_size)
+        equal(f"{path} 2 super-blocks",
+              torch.cat([gather(a, mesh), gather(b, mesh)], dim=-1),
+              gather(one, wide), "one call at the same T_loc")
+        traffic(path, lambda: so.sosfilt_sharded(
+            p3, sos, mesh, block_size=ic.block_size),
+            len(sos) * 8 * cfg3.channels * shape[1])
+        times(path, lambda: so.sosfilt_sharded(p3, sos, mesh,
+                                               block_size=ic.block_size),
+              lambda: sosfilt(sos, x3, block_size=ic.block_size))
+    del p3, y, a, b, one
+
+    # stage_pipeline: 4 stateless blockwise stages on config 3's channels
+    band = firwin(1024, 0.25, window="hamming")
+    high = firwin(1023, 0.02, window="hamming", pass_zero=False)
+    fns = [lambda v: fir_filter(v, band, method="ols"),
+           lambda v: v * 0.5 + 0.25,
+           lambda v: fir_filter(v, high, method="ols"),
+           torch.tanh]
+    smesh = make_stage_mesh(4, devices=[dev] * 4)
+    path = f"stage_pipeline 4 stages, micro-blocks of {P10_MICRO_BLOCK}"
+    y = run_path(path, set(), lambda: stage_pipeline(
+        fns, smesh, x3, micro_block=P10_MICRO_BLOCK))
+
+    def serial():
+        out = []
+        for i in range(t3 // P10_MICRO_BLOCK):
+            v = x3[:, i * P10_MICRO_BLOCK:(i + 1) * P10_MICRO_BLOCK]
+            for f in fns:
+                v = f(v)
+            out.append(v)
+        return torch.cat(out, dim=-1)
+
+    equal(path, y, serial(), "the serial blockwise composition")
+    traffic(path, lambda: stage_pipeline(fns, smesh, x3,
+                                         micro_block=P10_MICRO_BLOCK),
+            3 * (t3 // P10_MICRO_BLOCK) * cfg3.channels * P10_MICRO_BLOCK
+            * 4)
+    times(path, lambda: stage_pipeline(fns, smesh, x3,
+                                       micro_block=P10_MICRO_BLOCK),
+          serial, "serial composition")
+    for what, fn in (("pipelined", lambda: stage_pipeline(
+            fns, smesh, x3, micro_block=P10_MICRO_BLOCK)),
+            ("serial", serial)):
+        p = profile_calls(fn)
+        if p is not None:
+            log(f"[phase10] {path} {what}: device busy {p.busy_ms:.3f} ms "
+                f"summed over streams in {p.event_ms:.3f} ms of events "
+                f"(concurrency {p.busy_ms / p.event_ms:.2f}), host "
+                f"{p.host_ms:.3f} ms, on {smi}")
+    del x3, y_ref, y
+
+    # ---- config 4: spectral_gain_sharded on (1, 4) ----------------------
+    cfg4 = load_config("stft_gain_256ch")
+    sc = cfg4.stft
+    n_fft, hop = sc.n_fft, sc.hop
+    rate = cfg4.sample_rate
+    gain = np.full(n_fft // 2 + 1, 10.0 ** (-6 / 20), np.float32)
+    fk = np.arange(n_fft // 2 + 1) * rate / n_fft
+    gain[(fk >= 1000) & (fk <= 2000)] = 0.0
+    x4 = torch.randn((cfg4.channels, P10_SPECTRAL_T), generator=gen,
+                     device=dev)
+    p4 = shard(x4, mesh14)
+    ov = n_fft - hop
+    cut = P10_SPECTRAL_T - n_fft
+    for engine in ("reference", "cwola"):
+        path = f"config 4 spectral_gain_sharded {engine} 1x4"
+        stage = SpectralGainStage(gain, n_fft=n_fft, hop=hop,
+                                  window=sc.window, engine=engine)
+        st0 = stage.init_state((cfg4.channels,), device=dev)
+        # the stage's output lags its input by n_fft - hop samples
+        y_ref = stage.apply(x4, st0)[0][:, ov:cut + ov]
+        y = run_path(path, set(), lambda: gather(spectral_gain_sharded(
+            p4, gain, mesh14, n_fft=n_fft, hop=hop, window=sc.window,
+            engine=engine), mesh14))
+        check(f"{path} interior (all but the last {n_fft}) vs the unsharded "
+              f"stage", device_snr_db(y_ref, y[:, :cut]),
+              SPECTRAL_SP_FLOOR_DB)
+        traffic(path, lambda: spectral_gain_sharded(
+            p4, gain, mesh14, n_fft=n_fft, hop=hop, window=sc.window,
+            engine=engine), 3 * (2 * cfg4.channels * ov * 4 + ov * 4))
+        times(path, lambda: spectral_gain_sharded(
+            p4, gain, mesh14, n_fft=n_fft, hop=hop, window=sc.window,
+            engine=engine), lambda: stage.apply(x4, st0),
+            "unsharded stage")
+    del x4, p4, y, y_ref
+    torch.cuda.empty_cache()
+
+    # ---- the heartbeat on the (2, 2) mesh -------------------------------
+    path = "heartbeat 2x2"
+    ok = run_path(path, set(), lambda: heartbeat(mesh22))
+    bad = torch.randn(4 * 1024, generator=gen, device=dev)
+    bad[3000] = float("nan")
+    nan = heartbeat(mesh22, bad)
+    log(f"[phase10] {path}: clean {ok}, NaN payload {nan}")
+    if not ok["ok"] or nan["ok"] or ok["devices"] != 4:
+        raise RuntimeError(f"phase 10 {path}: {ok}, {nan}")
+    traffic(path, lambda: heartbeat(mesh22), 8 * 4)
+
+    # ---- the NCCL process group of one ---------------------------------
+    # NCCL will not put two processes on one card, so this group has one
+    # process and every rank of its mesh is local: it runs the bootstrap
+    # and NCCL's all_reduce (the heartbeat), and no NCCL point-to-point
+    # call (the halo, reshard and carry sends run only between processes)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    rd.init_distributed(f"localhost:{port}", 1, 0, device="cuda")
+    import torch.distributed as dist
+
+    try:
+        gmesh = rd.global_dsp_mesh(1, 4, ranks_per_process=4)
+        beat = heartbeat(gmesh, bad)
+        log(f"[phase10] NCCL group of one ({dist.get_backend()}; "
+            f"all_reduce only, no point-to-point): global mesh "
+            f"{gmesh.shape}, local slice "
+            f"{rd.host_local_shard(CZ_FUSED_CHANNELS, 4 * t_loc, gmesh)}"
+            f", heartbeat on a NaN payload {beat}")
+        if beat["ok"] or dist.get_backend() != "nccl":
+            raise RuntimeError(f"NCCL group of one: {beat}")
+        xg = torch.randn((CZ_FUSED_CHANNELS, 4 * t_loc), generator=gen,
+                         device=dev)
+        ch = chans["fused"]
+        path = "NCCL group of one channelizer fused"
+        gparts = rd.make_global_array(
+            tuple(xg.shape), gmesh, channel_time_spec(),
+            lambda idx: xg[idx].cpu().numpy())
+        spec, _ = run_path(path, {B1}, lambda: ch.sharded_step(gmesh)(
+            gparts, ch.init_state(CZ_FUSED_CHANNELS)))
+        ref, _ = ch.sharded_step(mesh4)(
+            shard(xg, mesh4), ch.init_state(CZ_FUSED_CHANNELS))
+        equal(path, gather(spec, gmesh, dim=1), gather(ref, mesh4, dim=1),
+              "the same step on a mesh of this process")
+    finally:
+        dist.destroy_process_group()
+    return by_path
+
+
 def main() -> int:
     import scipy.signal as ss
     import torch
@@ -2035,6 +2615,12 @@ def main() -> int:
     log(f"[phase9] kernel launches on this path: {got} (none expected)")
     if any(got.values()):
         raise RuntimeError(f"phase 9 launched a hand kernel: {got}")
+    # ---- phase 10: the sharded modules on ranks of the card ---------------
+    t0 = time.perf_counter()
+    for name, paths in parallel_paths(dev, smi, wrappers).items():
+        by_path[name].update(paths)
+        launches[name] += sum(paths.values())
+    log(f"[phase10] all paths in {time.perf_counter() - t0:.1f} s")
     log(f"[memory] peak device memory allocated in this run: "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
 

@@ -7,10 +7,12 @@ and each Pallas TPU kernel becomes a CUDA C++ kernel written for ``sm_90a``
 neither ``jax`` nor ``llzlab_tpu``.
 
 Layering:
-    runtime/  — device and precision policy
+    runtime/  — device and precision policy, torch.distributed bootstrap,
+              heartbeat
     kernels/  — CUDA kernels, their builds, wrappers and plain versions
     ops/      — user-facing numerical ops
-    parallel/ — the rank mesh and the halo exchange between time shards
+    parallel/ — the (channel, time) rank mesh, the halo exchange, the
+              all-to-all reshard and the sharded ops
     pipeline/ — chain composition + streaming
     chains/   — the channelizer, on one device and sharded over time
     utils/    — checkpoint/resume, configs, metrics, stage timers
@@ -18,21 +20,21 @@ Layering:
               and ``channelizer`` tools
     calib/    — the IIR engine selection's per-card measurements
 
-Ported so far: FIR design (window, frequency sampling, Kaiser, least
+Ported: everything the JAX package does, but what ROADMAP.md "Not to
+port" leaves out: FIR design (window, frequency sampling, Kaiser, least
 squares, minimum phase, Remez) and filtering (block2 on any channel
 count, overlap-save, direct, im2col), polyphase, FFT and decimating
 resampling, the fused FIR→resample step, the FFT entry points, STFT /
 iSTFT and the spectral-gain stage (config 4), IIR design and the
 blockwise-scan and matrix-product biquad engines with their calibrated
-selection (config 3), the channelizer with its time-sharded step, and
-the ``fir``, ``iir``, ``resample``, ``stft`` and ``channelizer`` tools;
-FFT convolution and correlation, spectral analysis (frequency response,
-group delay, spectrogram, Hilbert, periodogram, Welch, CSD, coherence),
-smoothing (detrend, Savitzky-Golay, median, Wiener), DCT / DST, MDCT,
-the chirp-Z and zoom FFT, test signals, the scipy-compatible front doors
-(``ops/compat.py``) and the stage timers and roofline report
-(``utils/profiling.py``).  Still to come: the rest of ``parallel/`` and
-``runtime/`` (ROADMAP.md, queue A slice 9).
+selection (config 3), the channelizer on one device and sharded over
+(channel, time) meshes, and the ``fir``, ``iir``, ``resample``, ``stft``
+and ``channelizer`` tools; FFT convolution and correlation, spectral
+analysis, smoothing, DCT / DST, MDCT, the chirp-Z and zoom FFT, test
+signals, the scipy-compatible front doors (``ops/compat.py``), the stage
+timers, roofline report and collective traffic (``utils/profiling.py``);
+the sharded FIR, resample, IIR, FFT and spectral-gain ops, tap and stage
+parallelism, the heartbeat and the multi-process bootstrap.
 """
 
 __version__ = "0.1.0"

@@ -3,12 +3,13 @@
 
 ``x (C, T)`` → 1024-tap FIR band-shaping → 147/160 polyphase resample →
 2048-point spectral framing, on one device (:meth:`Channelizer.step`) or
-with time blocks spread over a 1-D time mesh
-(:meth:`Channelizer.sharded_step`).  The sharded step's only steady-state
-communication is the left halo: each rank needs its left neighbour's last
-samples as FIR history and as resampler history.  Everything else is local
-work: kernel B1 (``fir_method="fused"``) or kernel B2 plus a matrix product
-(``"block2"``), then ``torch.fft``.
+sharded over a ``(time,)`` or ``(channel, time)`` mesh
+(:meth:`Channelizer.sharded_step`).  The sharded step's steady-state
+communication is the left halo inside each channel row: each rank needs
+its left neighbour's last samples as FIR history and as resampler history;
+with ``frames="a2a"`` one all-to-all follows the resampler.  Everything
+else is local work: kernel B1 (``fir_method="fused"``) or kernel B2 plus a
+matrix product (``"block2"``), then ``torch.fft``.
 
 One process drives every rank of the mesh (``parallel/mesh.py``), so the
 sharded step takes and returns one tensor per rank where the JAX package
@@ -18,7 +19,7 @@ passes one sharded array through ``shard_map``.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -30,8 +31,11 @@ from llzlab_tpu_torch.kernels.halo_ring import (check_exchanges,
 from llzlab_tpu_torch.ops import fir as _fir
 from llzlab_tpu_torch.ops import resample as _rs
 from llzlab_tpu_torch.ops import transform as _tf
-from llzlab_tpu_torch.parallel.halo import left_halo
-from llzlab_tpu_torch.parallel.mesh import CHANNEL_AXIS, TIME_AXIS, DspMesh
+from llzlab_tpu_torch.kernels.block2_fir import plain_tables
+from llzlab_tpu_torch.parallel.halo import left_halo, row_values
+from llzlab_tpu_torch.parallel.mesh import (CHANNEL_AXIS, TIME_AXIS, DspMesh,
+                                            note_traffic)
+from llzlab_tpu_torch.parallel.reshard import to_channel_major
 from llzlab_tpu_torch.runtime.platform import kernel_mode
 
 __all__ = ["Channelizer"]
@@ -215,16 +219,22 @@ class Channelizer:
 
     def sharded_step(self, mesh: DspMesh, *, halo: str = "ppermute",
                      frames: str = "local", halo_overlap: bool = False):
-        """Build the time-sharded step ``(parts, state) → (spec_parts,
-        state)`` on a 1-D ``(time,)`` mesh.
+        """Build the mesh-sharded step ``(parts, state) → (spec_parts,
+        state)`` on a ``(time,)`` or ``(channel, time)`` mesh: channels
+        data-parallel over the channel axis, time sequence-parallel over
+        the time axis, each channel row's halos inside its row.
 
-        ``parts``: one ``(C, T_loc)`` tensor per rank, on the rank's device
-        (``parallel.mesh.shard_time``), ``T_loc`` a multiple of
-        :meth:`block_multiple`.  ``spec_parts``: each rank's frames, on its
-        device (``gather_time(spec_parts, mesh, dim=1)`` joins them).
-        ``state``: the pair of :meth:`init_state`, on rank 0's device,
-        which alone consumes it; the state returned is the last rank's
-        tail, copied to rank 0 (``broadcast_from_last``'s value there).
+        ``parts``: one ``(C / n_channel, T_loc)`` tensor per rank, on the
+        rank's device (``parallel.mesh.shard``), ``T_loc`` a multiple of
+        :meth:`block_multiple` of ``frames``.  ``spec_parts``: each rank's
+        frames, on its device: with ``frames="local"`` the frames of its
+        own time block (``gather(spec_parts, mesh, dim=1)`` joins them),
+        with ``"a2a"`` every frame of the stream for its channel block of
+        the channel-major layout (``gather(spec_parts, mesh,
+        spec=CHANNEL_MAJOR)``).  ``state``: the pair of :meth:`init_state`
+        for all ``C`` channels, on rank 0's device; each channel row takes
+        its rows, and the state returned holds each row's last rank's
+        tail, copied to rank 0.
 
         The step's work is queued behind the caller's current stream and
         that stream is made to wait for it; the step does not wait for its
@@ -243,20 +253,36 @@ class Channelizer:
         ``kernels/halo_fir_fused.py``: the exchange inside the block2 FIR
         kernel, which computes every output that needs no halo while the
         tail travels; needs ``fir_method="block2"``; the resampler's halo
-        still goes through B3).  On a CPU mesh the kernels' plain versions
-        run.
+        still goes through B3).  The kernels need a 1-D ``(time,)`` mesh
+        of this process's ranks.  On a CPU mesh their plain versions run.
 
-        Not ported yet, each raising ``NotImplementedError``:
-        ``frames="a2a"``, ``halo_overlap=True`` and meshes with a channel
-        axis (ROADMAP queue A, "the rest of parallel/").
+        ``halo_overlap``: the linear stages split as ``f(halo, x) = f(0,
+        x) + f(halo, 0)``, so that the exchange feeds only a correction of
+        one block (``"block2"``: B2 with no history, plus ``halo @ B`` on
+        the first block; the resampler's halo likewise) or of one program
+        (``"fused"``: B1 with a zero history, plus B1 on a zero program
+        with the halo).  Each rank's bulk launch is queued before its
+        exchange.  The split reassociates float32 sums, so the step equals
+        the exact one to about 140 dB, not bit for bit.
+
+        ``frames``: "local" frames each time block on its rank (its
+        resampled length a multiple of ``fft_n``); "a2a" reshards the
+        resampled signal to channel-major with one all-to-all
+        (``parallel/reshard.py``), so that frames span the whole stream
+        and straddle the time blocks (needs ``C`` divisible by the rank
+        count).
         """
         axes = tuple(mesh.axis_names)
+        if axes not in ((TIME_AXIS,), (CHANNEL_AXIS, TIME_AXIS)):
+            raise ValueError(f"sharded_step needs a ({TIME_AXIS!r},) or "
+                             f"({CHANNEL_AXIS!r}, {TIME_AXIS!r}) mesh, got "
+                             f"{axes}")
         if halo in ("rdma", "rdma_fused"):
-            if axes != (TIME_AXIS,):
+            if axes != (TIME_AXIS,) or mesh.is_distributed:
                 raise ValueError(
-                    f"halo={halo!r} needs a 1-D (time,) mesh: the halo "
-                    "kernels address their right neighbour on one axis "
-                    "(see kernels/halo_ring.py)")
+                    f"halo={halo!r} needs a 1-D (time,) mesh of this "
+                    "process's ranks: the halo kernels address their right "
+                    "neighbour on one axis (see kernels/halo_ring.py)")
             if halo == "rdma_fused" and self.fir_method != "block2":
                 raise ValueError(
                     "halo='rdma_fused' fuses the exchange into the "
@@ -277,68 +303,140 @@ class Channelizer:
             raise ValueError(
                 "halo_overlap needs fir_method 'fused' or 'block2' "
                 f"(got {self.fir_method!r})")
-        for what, off in (("frames='a2a'", frames == "a2a"),
-                          ("halo_overlap=True", halo_overlap),
-                          (f"a mesh with axes {axes}", axes != (TIME_AXIS,))):
-            if off:
-                raise NotImplementedError(
-                    f"sharded_step with {what} is not ported yet (ROADMAP "
-                    f"queue A, 'the rest of parallel/'); the port shards "
-                    f"over a 1-D ({TIME_AXIS!r},) mesh with local frames")
+        if mesh.is_distributed:
+            raise ValueError(
+                "sharded_step needs a mesh of this process's ranks: its "
+                "state lives on rank 0")
         n = len(mesh)
+        rows = mesh.rows()
+        ntaps = len(self.fir_taps)
+        block = _fir.block2_block(ntaps)
 
-        def per_rank(fn, *lists) -> List:
-            out = []
-            for r in range(n):
-                with mesh.on(r):
-                    out.append(fn(*(v[r] for v in lists)))
-            return out
+        def zeros_like_rows(v, width):
+            return torch.zeros(v.shape[:-1] + (width,), dtype=v.dtype,
+                               device=v.device)
 
-        def tails(parts: Sequence[torch.Tensor], h: int):
-            """Rank 0's copy of the last rank's last ``h`` samples."""
-            last = parts[n - 1]
-            tail = last[..., last.shape[-1] - h:]
-            mesh.after(0, n - 1)
-            with mesh.on(0) as rank:
-                return torch.empty(tail.shape, dtype=tail.dtype,
-                                   device=rank.device).copy_(tail)
+        def tails(ends: Sequence[torch.Tensor], h: int):
+            """Rank 0's copy of each row's last rank's last ``h``
+            samples, the rows joined along the channels."""
+            got = []
+            for row, last in zip(rows, ends):
+                tail = last[..., last.shape[-1] - h:]
+                mesh.after(0, row[-1])
+                with mesh.on(0) as rank:
+                    got.append(torch.empty(tail.shape, dtype=tail.dtype,
+                                           device=rank.device).copy_(tail))
+            note_traffic("collective-permute",
+                         tail.numel() * tail.element_size(),
+                         sum(row[-1] != 0 for row in rows))
+            if len(got) == 1:
+                return got[0]
+            with mesh.on(0):
+                return torch.cat(got, dim=0)
+
+        def fused_row(rmesh, xs, fir_st):
+            if not halo_overlap:
+                # ONE halo: the 2·block input history carries both the FIR
+                # reach and the resampler's y-lookback.
+                halos = halo_fn(xs, self.h_fir, rmesh,
+                                first_shard_value=fir_st)
+                return rmesh.map(lambda x, hv: self._fused_step(
+                    x, hv, return_zf=False), xs, halos)
+            p = _ff.fused_program_in(ntaps, self.up, self.down)
+            p_out = p * self.up // self.down
+            z = rmesh.map(lambda x: self._fused_step(
+                x, zeros_like_rows(x, self.h_fir), return_zf=False), xs)
+            halos = halo_fn(xs, self.h_fir, rmesh, first_shard_value=fir_st)
+
+            def correct(z0, hv):
+                zc = self._fused_step(zeros_like_rows(hv, p), hv,
+                                      return_zf=False)
+                z0[..., :p_out] += zc[..., :p_out]
+                return z0
+
+            return rmesh.map(correct, z, halos)
+
+        def fir_row(rmesh, xs, fir_st):
+            if halo == "rdma_fused":
+                return block2_fir_halo_fused(
+                    xs, self.fir_taps, rmesh, first_shard_value=fir_st,
+                    mode=kernel_mode())
+            if not halo_overlap:
+                halos = halo_fn(xs, self.h_fir, rmesh,
+                                first_shard_value=fir_st)
+                return rmesh.map(lambda x, hv: _fir.fir_filter(
+                    x, self.fir_taps, method=self.fir_method,
+                    nfft=self.nfft, zi=hv), xs, halos)
+            # y_0 = x_0 @ A + halo @ B: only the B term waits
+            y = rmesh.map(lambda x: _fir.fir_filter(
+                x, self.fir_taps, method="block2"), xs)
+            halos = halo_fn(xs, self.h_fir, rmesh, first_shard_value=fir_st)
+
+            def correct(y0, hv):
+                bm = plain_tables(self.fir_taps, block, "highest",
+                                  hv.device)[0][:block]
+                y0[..., :block] += hv @ bm
+                return y0
+
+            return rmesh.map(correct, y, halos)
+
+        def resample_row(rmesh, y, rs_st):
+            if not halo_overlap:
+                halos = halo_fn(y, self.h_rs, rmesh, first_shard_value=rs_st)
+                return rmesh.map(lambda v, hv: _rs.resample_poly(
+                    v, self.up, self.down, taps=self.resample_taps, zi=hv),
+                    y, halos)
+            # the history feeds only the first ceil((k−1)/down) groups
+            z = rmesh.map(lambda v: _rs.resample_poly(
+                v, self.up, self.down, taps=self.resample_taps), y)
+            halos = halo_fn(y, self.h_rs, rmesh, first_shard_value=rs_st)
+            t0 = self.down * (-(-(self.k - 1) // self.down))
+
+            def correct(z0, hv):
+                zc = _rs.resample_poly(zeros_like_rows(hv, t0), self.up,
+                                       self.down, taps=self.resample_taps,
+                                       zi=hv)
+                z0[..., :zc.shape[-1]] += zc
+                return z0
+
+            return rmesh.map(correct, z, halos)
 
         kernels_exchange = halo != "ppermute" and mesh.is_cuda
         issued = []  # per rank, the end of the previous call's work
 
         def step(parts: Sequence[torch.Tensor], state):
+            if len(parts) != n:
+                raise ValueError(f"{len(parts)} blocks for {n} ranks")
             fir_st, rs_st = state
             mesh.fork()
-            if self.fir_method == "fused":
-                # ONE halo: the 2·block input history carries both the FIR
-                # reach and the resampler's y-lookback.
-                halos = halo_fn(parts, self.h_fir, mesh,
-                                first_shard_value=fir_st)
-                z = per_rank(
-                    lambda x, hv: self._fused_step(x, hv, return_zf=False),
-                    parts, halos)
-                new_state = (tails(parts, self.h_fir), rs_st)
+            if len(rows) > 1:
+                fir_rows = row_values(fir_st, mesh)
+                rs_rows = row_values(rs_st, mesh)
             else:
-                if halo == "rdma_fused":
-                    y = block2_fir_halo_fused(
-                        parts, self.fir_taps, mesh, first_shard_value=fir_st,
-                        mode=kernel_mode())
+                fir_rows, rs_rows = [fir_st], [rs_st]
+            z = [None] * n
+            x_ends, y_ends = [], []
+            for c, row in enumerate(rows):
+                rmesh = mesh.row(c)
+                xs = [parts[r] for r in row]
+                x_ends.append(xs[-1])
+                if self.fir_method == "fused":
+                    zs = fused_row(rmesh, xs, fir_rows[c])
                 else:
-                    halos = halo_fn(parts, self.h_fir, mesh,
-                                    first_shard_value=fir_st)
-                    y = per_rank(
-                        lambda x, hv: _fir.fir_filter(
-                            x, self.fir_taps, method=self.fir_method,
-                            nfft=self.nfft, zi=hv), parts, halos)
-                fir_tail = tails(parts, self.h_fir)
-                halos_r = halo_fn(y, self.h_rs, mesh,
-                                  first_shard_value=rs_st)
-                z = per_rank(
-                    lambda v, hv: _rs.resample_poly(
-                        v, self.up, self.down, taps=self.resample_taps,
-                        zi=hv), y, halos_r)
-                new_state = (fir_tail, tails(y, self.h_rs))
-            spec = per_rank(self._frames, z)
+                    y = fir_row(rmesh, xs, fir_rows[c])
+                    y_ends.append(y[-1])
+                    zs = resample_row(rmesh, y, rs_rows[c])
+                for r, v in zip(row, zs):
+                    z[r] = v
+            if self.fir_method == "fused":
+                new_state = (tails(x_ends, self.h_fir), rs_st)
+            else:
+                new_state = (tails(x_ends, self.h_fir),
+                             tails(y_ends, self.h_rs))
+            if frames == "a2a":
+                z = to_channel_major(z, mesh)
+            spec = mesh.map(self._frames, z)
+            del z
             previous = list(issued)
             if kernels_exchange:
                 issued[:] = [rank.stream.record_event()

@@ -2,18 +2,19 @@
 command (port of ``llzlab_tpu/cli/channelizer.py``).
 
     python -m llzlab_tpu_torch.cli.channelizer -i wide.wav -o spec.npz \
-        [--fft 2048] [--mesh-time N] [--cpu]
+        [--fft 2048] [--mesh-channel N --mesh-time M] [--cpu]
 
 Reads a multichannel WAV (or synthesises ``--synth`` channels of noise),
-splits time over a 1-D mesh of ranks, runs the FIR → resample → FFT chain
-(``Channelizer.sharded_step``) and writes the spectra as an ``.npz``
-(``spectra``, ``rate``, ``fft_n``), as the JAX package's tool does.
+shards (channel, time) over a mesh of ranks, runs the FIR → resample → FFT
+chain (``Channelizer.sharded_step``) and writes the spectra as an ``.npz``
+(``spectra``, ``rate``, ``fft_n``), as the JAX package's tool does; a
+channel count that the channel axis does not divide is padded with zero
+channels, which the file keeps, as there.
 
 The mesh: one rank per visible card by default (one on a machine with one
-card); ``--mesh-time N`` puts N ranks on the cards, dealt out in equal
-runs; ``--cpu`` runs a mesh of CPU ranks (one, or ``--mesh-time``).  The
-port's sharded step takes a time axis only, so ``--mesh-channel`` above 1
-raises ``NotImplementedError`` (ROADMAP queue A, slice 9).
+card); ``--mesh-channel N --mesh-time M`` puts N × M ranks on the cards,
+dealt out in equal runs (either alone: the other is 1); ``--cpu`` runs a
+mesh of CPU ranks.
 """
 
 import argparse
@@ -45,16 +46,10 @@ def main(argv=None):
     from llzlab_tpu_torch.chains.channelizer import Channelizer
     from llzlab_tpu_torch.io.wav import read_wav
     from llzlab_tpu_torch.ops.fir import firwin
-    from llzlab_tpu_torch.parallel.mesh import (TIME_AXIS, DspMesh,
-                                                gather_time, shard_time)
+    from llzlab_tpu_torch.parallel.mesh import gather, make_dsp_mesh, shard
     from llzlab_tpu_torch.runtime.platform import require_cuda
     from llzlab_tpu_torch.utils.metrics import MetricsLogger
 
-    if args.mesh_channel is not None and args.mesh_channel > 1:
-        raise NotImplementedError(
-            "--mesh-channel above 1: the port's sharded step takes a 1-D "
-            f"({TIME_AXIS!r},) mesh; meshes with a channel axis are ROADMAP "
-            "queue A, slice 9")
     log = MetricsLogger(args.metrics)
 
     if args.input:
@@ -67,32 +62,37 @@ def main(argv=None):
         ).astype(np.float32)
         rate = args.rate
 
+    nc = args.mesh_channel or 1
     if args.cpu:
-        devices = ["cpu"] * (args.mesh_time or 1)
+        devices = ["cpu"] * (nc * (args.mesh_time or 1))
     else:
         require_cuda()
         count = torch.cuda.device_count()
-        n = args.mesh_time or count
+        n = nc * (args.mesh_time or max(count // nc, 1))
         devices = [torch.device("cuda", i * count // n) for i in range(n)]
-    mesh = DspMesh(devices, (TIME_AXIS,))
+    mesh = make_dsp_mesh(nc, len(devices) // nc, devices=devices)
     chan = Channelizer(
         fir_taps=firwin(args.fir_taps, 0.4, window="hamming"),
         fft_n=args.fft,
         fir_method=args.fir_method,
         device=mesh.ranks[0].device,
     )
-    nt = len(mesh)
+    nt = mesh.n_time
     m = chan.block_multiple() * nt
     c, t = x.shape
+    if c % nc:
+        pad_c = nc - c % nc
+        x = np.pad(x, ((0, pad_c), (0, 0)))
+        c += pad_c
     t_use = (t // m) * m
     if t_use == 0:
         print(f"input too short: need ≥ {m} samples", file=sys.stderr)
         sys.exit(1)
     x = x[:, :t_use]
-    log.event("start", channels=c, samples=t_use, mesh=f"1x{nt}",
+    log.event("start", channels=c, samples=t_use, mesh=f"{nc}x{nt}",
               backend=mesh.ranks[0].device.type)
 
-    parts = shard_time(torch.from_numpy(x), mesh)
+    parts = shard(torch.from_numpy(x), mesh)
     state = chan.init_state(c)
     step = chan.sharded_step(mesh)
     mesh.synchronize()
@@ -101,7 +101,7 @@ def main(argv=None):
     mesh.synchronize()
     dt = time.perf_counter() - t0
     log.stage("channelizer", c * t_use, dt)
-    spec = gather_time(spec, mesh, dim=1).cpu().numpy()
+    spec = gather(spec, mesh, dim=1).cpu().numpy()
     np.savez(args.output, spectra=spec, rate=rate * 147 // 160,
              fft_n=args.fft)
     log.event("done", out=args.output, shape=list(spec.shape))

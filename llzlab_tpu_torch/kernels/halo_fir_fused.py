@@ -49,7 +49,7 @@ from llzlab_tpu_torch.kernels.block2_fir import (MMA_PASS, MODES,
                                                  mma_smem_bytes, tap_tables)
 from llzlab_tpu_torch.ops.fir import block2_block
 from llzlab_tpu_torch.parallel.halo import left_halo
-from llzlab_tpu_torch.parallel.mesh import DspMesh
+from llzlab_tpu_torch.parallel.mesh import DspMesh, note_traffic
 
 __all__ = ["block2_fir_halo_fused", "block2_fir_halo_fused_cuda",
            "block2_fir_halo_fused_plain", "halo_fused_supports",
@@ -224,6 +224,7 @@ def block2_fir_halo_fused_cuda(parts: Sequence[torch.Tensor], taps,
             ex.launched(r)
         block2_fir_halo_fused_cuda.launches += 1
         out.append(y)
+    note_traffic("collective-permute", 4 * b * h, len(parts) - 1)
     return out
 
 

@@ -43,7 +43,7 @@ import torch
 
 from llzlab_tpu_torch.kernels import _build
 from llzlab_tpu_torch.parallel.halo import left_halo
-from llzlab_tpu_torch.parallel.mesh import TIME_AXIS, DspMesh
+from llzlab_tpu_torch.parallel.mesh import TIME_AXIS, DspMesh, note_traffic
 
 __all__ = ["left_halo_ring", "left_halo_ring_cuda", "left_halo_ring_plain",
            "HaloExchange", "check_exchanges", "ranks_by_card",
@@ -219,6 +219,10 @@ def check_time_mesh(mesh: DspMesh, parts: Sequence[torch.Tensor]) -> None:
     if mesh.axis_names != (TIME_AXIS,):
         raise ValueError(f"needs a 1-D ({TIME_AXIS!r},) mesh, got "
                          f"{mesh.axis_names}")
+    if mesh.is_distributed:
+        raise ValueError("needs a mesh of this process's ranks: the halo "
+                         "kernels address ranks by pointer, and a rank of "
+                         "another process has none here")
     if len(parts) != len(mesh):
         raise ValueError(f"{len(parts)} shards for {len(mesh)} ranks")
 
@@ -325,6 +329,7 @@ def left_halo_ring_cuda(parts: Sequence[torch.Tensor], h: int, mesh: DspMesh,
             # their memory from reuse there while rank r may still read it
             halos.record_stream(ranks[r].stream)
         out.extend(halos.unbind(0))
+    note_traffic("collective-permute", 4 * c * h, n - 1)
     return out
 
 

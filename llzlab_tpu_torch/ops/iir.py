@@ -897,6 +897,19 @@ def apply_section(kind: str, params, cur: torch.Tensor,
     zeros; :func:`sosfilt` pads once for the whole cascade and passes the
     true last index as ``zf_index``.
     """
+    y, zf = apply_section_host(kind, params, cur,
+                               s0_init.to(torch.float32).cpu().numpy(),
+                               block_size, zf_index)
+    return y, torch.from_numpy(zf).to(cur.device)
+
+
+def apply_section_host(kind: str, params, cur: torch.Tensor,
+                       s0_init: np.ndarray, block_size: int,
+                       zf_index: Optional[int] = None):
+    """:func:`apply_section` with the states on the host, where the carry
+    across blocks is computed: ``s0_init`` and the returned ``zf`` are
+    ``(B, 2)`` float32 arrays (the sharded carry composition,
+    ``parallel/sharded_ops.py``, composes them there)."""
     b, t = cur.shape
     L = int(block_size)
     if zf_index is None:
@@ -918,8 +931,7 @@ def apply_section(kind: str, params, cur: torch.Tensor,
     # 2. the carry across blocks, on the host
     j, k = divmod(zf_index, L)
     ends = z[:, :, L - 1, :].cpu().numpy()
-    s_in = _host_carry(ends, s0_init.to(torch.float32).cpu().numpy(),
-                       tab["carry"])
+    s_in = _host_carry(ends, s0_init, tab["carry"])
     zf = _state_at(z[:, j, k, :].cpu().numpy(), s_in[:, j], tab["carry"][k])
     # 3. the output, with the carry entering each block folded in
     c1, c2 = tab["c"]
@@ -932,8 +944,7 @@ def apply_section(kind: str, params, cur: torch.Tensor,
     carry = s_dev[..., 0:1] * g[:, 0]
     carry.add_(s_dev[..., 1:2] * g[:, 1])
     y.add_(carry)
-    return (y.reshape(b, tp)[:, :t],
-            torch.from_numpy(np.ascontiguousarray(zf)).to(x.device))
+    return y.reshape(b, tp)[:, :t], np.ascontiguousarray(zf)
 
 
 def section_transition(sos_row, length: int):

@@ -9,9 +9,11 @@
 * :func:`roofline_report` sets achieved bytes/s and FLOP/s beside the
   peaks of :data:`CHIP_PEAKS`, keyed by ``torch.cuda.get_device_name()``.
 
-The JAX package's ``collective_traffic`` reads XLA's compiled HLO, which
-the port has no counterpart of; its counterpart comes with the rest of
-``parallel/`` (ROADMAP.md, queue A slice 9).
+* :func:`collective_traffic` counts the bytes that a call moves between
+  ranks, per kind.  The JAX function parses XLA's compiled HLO, which the
+  port has no counterpart of; here every exchange of ``parallel/`` and of
+  kernels B3 / B4 notes its bytes as it is queued
+  (``parallel.mesh.note_traffic``), in the JAX package's kinds and count.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from typing import Dict, Optional
 
 import torch
 
-__all__ = ["StageTimer", "trace", "CHIP_PEAKS", "roofline_report"]
+__all__ = ["StageTimer", "trace", "CHIP_PEAKS", "roofline_report",
+           "collective_traffic"]
 
 #: Peaks per device name: dense bf16 matrix TFLOP/s and memory GB/s.  The
 #: H100 SXM's published figures (fp32 outside the tensor cores: 67
@@ -99,6 +102,26 @@ def trace(logdir: str):
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def collective_traffic(fn, *args, **kw) -> Dict[str, object]:
+    """Bytes that ``fn(*args, **kw)`` moves between ranks, per exchange,
+    in the JAX package's dict: ``{"total_bytes", "ops": [{"op", "bytes",
+    "bytes_per_device"}, ...]}``.
+
+    Kinds and counts are the JAX docstring's: ``collective-permute`` (the
+    halos, the state tails, the stage hand-offs) counts the payload of one
+    send times its sends; ``all-gather`` (the IIR end states),
+    ``all-to-all`` (the reshard) and ``all-reduce`` (the tap sum, the
+    heartbeat) count the per-device payload times the participants,
+    summed over the groups.  A call that exchanges nothing gives zero.
+    """
+    from llzlab_tpu_torch.parallel.mesh import record_traffic
+
+    with record_traffic() as ops:
+        fn(*args, **kw)
+    ops = list(ops)
+    return {"total_bytes": int(sum(o["bytes"] for o in ops)), "ops": ops}
 
 
 def roofline_report(

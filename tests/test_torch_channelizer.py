@@ -226,17 +226,6 @@ def test_sharded_step_rejects_what_the_reference_rejects():
             chan.sharded_step(mesh, halo="rdma_fused", halo_overlap=True)
 
 
-@pytest.mark.parametrize("kw,mesh_shape", [
-    (dict(frames="a2a"), None), (dict(halo_overlap=True), None),
-    (dict(), (2, 2)), (dict(), (1, 4))])
-def test_unported_sharded_modes_name_the_roadmap(kw, mesh_shape):
-    chan = Channelizer(device="cpu", **_config("block2"))
-    mesh = (_cpu_mesh() if mesh_shape is None
-            else make_dsp_mesh(*mesh_shape, devices=["cpu"] * 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        chan.sharded_step(mesh, **kw)
-
-
 def test_validate_sharded_shapes_matches_reference():
     ref, port = _pair("direct")
     mesh, rmesh = _cpu_mesh(), Mesh(np.asarray(jax.devices()[:N]),

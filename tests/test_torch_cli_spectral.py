@@ -116,9 +116,17 @@ def test_channelizer_tool_matches_the_reference_tool(tmp_path, method):
 
 
 def test_channelizer_tool_rejects_what_the_port_has_not(tmp_path, capsys):
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        pcz_cli.main(["-o", str(tmp_path / "o.npz"), "--cpu",
-                      "--mesh-channel", "2", "--synth", "2"] + CZ)
+    # --mesh-channel 2 --mesh-time 2 against the JAX tool on a (2, 2) mesh;
+    # 3 channels are padded to 4, as there
+    common = ["--synth", "3", "--fir-method", "ols", "--mesh-channel", "2",
+              "--mesh-time", "2"] + CZ[:-1] + ["1.0"]
+    pcz_cli.main(["-o", str(tmp_path / "p.npz"), "--cpu"] + common)
+    rcz_cli.main(["-o", str(tmp_path / "r.npz"), "--cpu"] + common)
+    spec, _, _ = _npz(tmp_path / "p.npz")
+    ref, _, _ = _npz(tmp_path / "r.npz")
+    assert spec.shape == ref.shape and spec.shape[0] == 4
+    assert _snr(ref, spec) >= VS_CZ_TOOL_DB
+    np.testing.assert_array_equal(spec[3], 0.0)
     with pytest.raises(SystemExit):
         pcz_cli.main(["-o", str(tmp_path / "o.npz"), "--cpu", "--synth",
                       "2", "--fir-taps", "129", "--fft", "64", "--seconds",

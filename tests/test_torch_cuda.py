@@ -716,3 +716,73 @@ def test_clear_tables_gives_back_the_card_memory_of_a_long_dct():
     assert torch.cuda.memory_allocated() - before >= 4096 * 4096 * 4
     assert lt.ops.clear_tables() == 1
     assert torch.cuda.memory_allocated() == before
+
+
+def _card_mesh(nc, nt):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from llzlab_tpu_torch.parallel.mesh import make_dsp_mesh
+
+    return make_dsp_mesh(nc, nt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,kernel", [("fused", ff.fused_fir_resample_cuda),
+                                           ("block2", bf.block2_fir_cuda)])
+def test_2d_channelizer_on_the_card_is_unsharded_streaming(method, kernel):
+    """A (2, 2) mesh of the card: each rank launches its kernel, and the
+    frames and states equal unsharded streaming bit for bit."""
+    from llzlab_tpu_torch import Channelizer
+    from llzlab_tpu_torch.parallel.mesh import gather, shard
+
+    mesh = _card_mesh(2, 2)
+    chan = Channelizer(fir_taps=firwin(256, 0.4), up=UP, down=DOWN,
+                       fft_n=128, taps_per_phase=K, fir_method=method,
+                       device="cuda")
+    t_loc = chan.block_multiple()
+    x = torch.randn((16, 2 * t_loc), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(5))
+    n = kernel.launches
+    spec, st = chan.sharded_step(mesh)(shard(x, mesh), chan.init_state(16))
+    assert kernel.launches == n + 4
+    got = gather(spec, mesh, dim=1)
+    st_r, ref = chan.init_state(16), []
+    for j in range(2):
+        s_, st_r = chan.step(x[:, j * t_loc:(j + 1) * t_loc], st_r)
+        ref.append(s_)
+    assert torch.equal(got, torch.cat(ref, dim=1))
+    assert all(torch.equal(a, b) for a, b in zip(st, st_r))
+
+
+@pytest.mark.cuda
+def test_sharded_ops_on_the_card():
+    """fir_filter_sharded(block2) launches B2 on every rank, bitwise
+    unsharded streaming; the IIR carry holds its floor; the heartbeat sees
+    a NaN on any rank."""
+    from llzlab_tpu_torch.ops.fir import fir_filter
+    from llzlab_tpu_torch.ops.iir import peaking_eq_sos, sosfilt
+    from llzlab_tpu_torch.parallel import sharded_ops as so
+    from llzlab_tpu_torch.parallel.mesh import gather, shard
+    from llzlab_tpu_torch.runtime.health import heartbeat
+
+    mesh = _card_mesh(2, 2)
+    taps = firwin(NTAPS, 0.2)
+    x = torch.randn((8, 2 * 4096), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(6))
+    n = bf.block2_fir_cuda.launches
+    y = gather(so.fir_filter_sharded(shard(x, mesh), taps, mesh,
+                                     method="block2"), mesh)
+    assert bf.block2_fir_cuda.launches == n + 4
+    zi, ref = None, []
+    for j in range(2):
+        yj, zi = fir_filter(x[:, j * 4096:(j + 1) * 4096], taps,
+                            method="block2", zi=zi, return_zf=True)
+        ref.append(yj)
+    assert torch.equal(y, torch.cat(ref, dim=-1))
+    sos = peaking_eq_sos([100, 1000, 8000], [3, -4, 5], 48000.0)
+    got = gather(so.sosfilt_sharded(shard(x, mesh), sos, mesh,
+                                    block_size=1024), mesh)
+    assert _snr_db(sosfilt(sos, x, block_size=1024), got) >= 135.0
+    bad = torch.zeros(64, device="cuda")
+    bad[50] = float("nan")
+    assert heartbeat(mesh)["ok"] and not heartbeat(mesh, bad)["ok"]
