@@ -282,6 +282,314 @@ def min_channel_snr_db(ref, y) -> float:
                                                    axis=-1))))
 
 
+def multicard_paths(dev, smi, wrappers):
+    """Phase 11: the sharded channelizer on several cards of this machine.
+    On one card: B3's send / wait protocol on ranks of the card each
+    launched alone (no cross-card run).  On two or more: config 5 on 1-D
+    meshes of 2 and 4 cards (one rank a card) and on (2, 2) and (4, 1),
+    every mode; per path bitwise the same ranks on ``dev``, the floors of
+    phase 10, launches by path (B3 and B4 across cards), CUDA-event ms of
+    the step beside the same ranks on one card, and the bytes against the
+    model; the tool's default mesh; B3 and B4 timed across cards.  Returns
+    ``({kernel: {path: launches}}, {kernel: across-card ms})``.  Raises
+    on any failure."""
+    import tempfile
+
+    import torch
+
+    from llzlab_tpu_torch import Channelizer
+    from llzlab_tpu_torch.cli import channelizer as cz_cli
+    from llzlab_tpu_torch.kernels import halo_fir_fused as hf
+    from llzlab_tpu_torch.kernels import halo_ring as hr
+    from llzlab_tpu_torch.parallel.mesh import (CHANNEL_MAJOR, TIME_AXIS,
+                                                DspMesh, gather,
+                                                make_dsp_mesh, shard)
+    from llzlab_tpu_torch.runtime.profiler import profile_calls
+    from llzlab_tpu_torch.utils.profiling import collective_traffic
+    from scripts.pod_scaling_torch import comm_bytes
+
+    B1, B2, B3, B4 = ("fused_fir_resample", "block2_fir", "halo_ring",
+                      "halo_fir_fused")
+    by_path = {name: {} for name in wrappers}
+    across_ms = {}
+    count = torch.cuda.device_count()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    chans = {m: Channelizer(fir_method=m, device=dev)
+             for m in ("fused", "block2")}
+    t_loc = chans["fused"].block_multiple()
+
+    def on_mesh(fn, m):
+        def run():
+            m.fork()
+            out = fn()
+            m.join()
+            return out
+        return run
+
+    def fail(msg):
+        raise RuntimeError(f"phase 11 {msg}")
+
+    # ---- B3's protocol on one card ------------------------------------
+    mesh1 = DspMesh([dev] * CZ_RANKS, (TIME_AXIS,))
+    x = torch.randn((CZ_CHANNELS, CZ_RANKS * t_loc), generator=gen,
+                    device=dev)
+    parts1 = shard(x, mesh1)
+    path = f"B3 protocol, {CZ_RANKS} ranks of {dev} each launched alone"
+    for w in wrappers.values():
+        w.launches = 0
+    for h in (chans["block2"].h_rs, chans["block2"].h_fir,
+              chans["fused"].h_fir):
+        for carry in (None, torch.randn((CZ_CHANNELS, h), generator=gen,
+                                        device=dev)):
+            got = on_mesh(lambda: hr.left_halo_ring_cuda(
+                parts1, h, mesh1, first_shard_value=carry, _per_rank=True),
+                mesh1)()
+            hr.check_exchanges(mesh1)
+            plain = on_mesh(lambda: hr.left_halo_ring_plain(
+                parts1, h, mesh1, first_shard_value=carry), mesh1)()
+            torch.cuda.synchronize(dev)
+            if not all(torch.equal(a, b) for a, b in zip(got, plain)):
+                fail(f"{path} h={h}: != plain version")
+    got = {n: w.launches for n, w in wrappers.items()}
+    if got[B3] != 6 * CZ_RANKS or sum(got.values()) != got[B3]:
+        fail(f"{path}: launches {got}, expected {6 * CZ_RANKS} of B3 alone")
+    by_path[B3][f"phase11 {path}"] = got[B3]
+    log(f"[phase11] {path}: every edge through the send / wait protocol, "
+        f"h = 63, 1024, 2048 with and without a carry, == plain version "
+        f"bitwise, {got[B3]} launches (one card: not a cross-card run)")
+    del parts1, got, plain
+    if count < 2:
+        log(f"[phase11] one card visible ({count}): ran on one card, the "
+            f"multi-card paths need two or more")
+        del x
+        torch.cuda.empty_cache()
+        return by_path, across_ms
+
+    # ---- peer access: what PyTorch's copies leave, then made explicit ----
+    a, b = torch.device("cuda", 0), torch.device("cuda", 1)
+    torch.zeros(1, device=a).to(b)
+    torch.zeros(1, device=b).to(a)
+    rc = hr.enable_peer_access(a, b)
+    log(f"[phase11] peer access {a} <-> {b} after PyTorch's copies between "
+        f"them: cudaDeviceEnablePeerAccess returned "
+        f"{['enabled now', 'already enabled'][rc[0] < 0]} / "
+        f"{['enabled now', 'already enabled'][rc[1] < 0]}")
+
+    def cz_run(path, ch, mesh, parts, state_c, halo, frames, overlap,
+               expect):
+        """Two super-blocks of the step on ``mesh``; the launches counted
+        from 0 over them (each kernel nonzero exactly where ``expect``
+        names it); returns the gathered spectra of each and the state."""
+        step = ch.sharded_step(mesh, halo=halo, frames=frames,
+                               halo_overlap=overlap)
+        for w in wrappers.values():
+            w.launches = 0
+        cross0 = (hr.left_halo_ring_cuda.cross_card_launches,
+                  hf.block2_fir_halo_fused_cuda.cross_card_launches)
+        st = ch.init_state(state_c)
+        outs = []
+        for _ in range(2):
+            spec, st = step(parts, st)
+            outs.append(gather(spec, mesh, **(
+                {"spec": CHANNEL_MAJOR} if frames == "a2a" else {"dim": 1})))
+            del spec
+        hr.check_exchanges(mesh)
+        torch.cuda.synchronize()
+        got = {n: w.launches for n, w in wrappers.items()}
+        cross = (hr.left_halo_ring_cuda.cross_card_launches - cross0[0],
+                 hf.block2_fir_halo_fused_cuda.cross_card_launches
+                 - cross0[1])
+        wrong = [n for n, k in got.items() if (n in expect) != (k > 0)]
+        if wrong:
+            fail(f"{path}: launches {got}, expected nonzero exactly on "
+                 f"{sorted(expect)}")
+        return outs, st, got, cross, step
+
+    def cz_path(path, m, nc, nt, channels, t_rank, halo="ppermute",
+                frames="local", overlap=False, profile=False):
+        """One path at full width on ``nc x nt`` cards and on the same
+        ranks of ``dev``."""
+        ch = chans[m]
+        n = nc * nt
+        xs = x[:channels, :nt * t_rank]
+        expect = {B1 if m == "fused" else B2}
+        if halo == "rdma":
+            expect.add(B3)
+        elif halo == "rdma_fused":
+            expect = {B3, B4}
+        devs = [torch.device("cuda", i) for i in range(n)]
+
+        def mesh_of(d):  # rdma needs a 1-D (time,) mesh
+            return DspMesh(d, (TIME_AXIS,)) if nc == 1 else \
+                make_dsp_mesh(nc, nt, devices=d)
+
+        multi, one = mesh_of(devs), mesh_of([dev] * n)
+        pm, po = shard(xs, multi), shard(xs, one)
+        with matmul_precision("highest"):
+            got, st, launches, cross, step = cz_run(
+                path, ch, multi, pm, channels, halo, frames, overlap, expect)
+            ref, st_ref, _, _, step_one = cz_run(
+                path + " on one card", ch, one, po, channels, halo, frames,
+                overlap, expect)
+            for i in range(2):
+                if got[i].shape != ref[i].shape or \
+                        not torch.equal(got[i], ref[i]):
+                    fail(f"{path} super-block {i + 1}: != the same ranks on "
+                         f"{dev} bitwise")
+            for u, v in zip(st, st_ref):
+                if not torch.equal(u.to(dev), v):
+                    fail(f"{path}: state != the same ranks on {dev}'s")
+            first = got[0]
+            del got, ref, st_ref
+            model = comm_bytes(ch, nc, nt, channels, frames=frames,
+                               t_total=nt * t_rank)
+            moved = collective_traffic(lambda: step(
+                pm, ch.init_state(channels)))["total_bytes"]
+            hr.check_exchanges(multi)
+            if moved != model:
+                fail(f"{path}: traffic {moved} B != model {model} B")
+            st0 = ch.init_state(channels)
+            ms = cuda_ms(lambda: step(pm, st0), iters=3, warmup=1)
+            ms_one = cuda_ms(lambda: step_one(po, st0), iters=3, warmup=1)
+            enqueue = host_ms(lambda: step(pm, st0), iters=3, warmup=0)
+            prof = profile_calls(lambda: step(pm, st0), 2) \
+                if profile else None
+            hr.check_exchanges(multi)
+            hr.check_exchanges(one)
+            # phase 10's floors: exact paths against unsharded streaming,
+            # a2a against the one-shot step, overlap against the exact step
+            if overlap:
+                want, _ = ch.sharded_step(one, halo=halo)(
+                    po, ch.init_state(channels))
+                want = gather(want, one, dim=1)
+                floor, what = OVERLAP_FLOOR_DB, "the exact step"
+            del pm, po
+            torch.cuda.empty_cache()
+            if not overlap and frames == "a2a":
+                want, _ = ch.step(xs, ch.init_state(channels))
+                floor, what = A2A_FLOOR_DB, "the unsharded one-shot step"
+            elif not overlap:
+                st_u, want = ch.init_state(channels), []
+                for j in range(nt):
+                    s_, st_u = ch.step(xs[:, j * t_rank:(j + 1) * t_rank],
+                                       st_u)
+                    want.append(s_)
+                want = torch.cat(want, dim=1)
+                floor, what = SHARDED_FLOOR_DB, "unsharded streaming"
+            snr = device_snr_db(want, first)
+            if first.shape != want.shape or not snr >= floor:
+                fail(f"{path}: {snr:.1f} dB against {what} (floor {floor})")
+            del want, first
+        if halo != "ppermute" and cross[0] == 0 or \
+                halo == "rdma_fused" and cross[1] == 0:
+            fail(f"{path}: no cross-card launch of B3 / B4 ({cross})")
+        for name, k in launches.items():
+            if k:
+                by_path[name][f"phase11 {path}"] = k
+        n_in = channels * nt * t_rank
+        log(f"[phase11] {path} ({channels} x {nt} x {t_rank}, "
+            f"{[str(d) for d in devs]}): == the same ranks on {dev} "
+            f"bitwise (2 super-blocks, state), {snr:.1f} dB against {what} "
+            f"(floor {floor}); launches {launches}, across cards B3 "
+            f"{cross[0]} B4 {cross[1]}; traffic {moved} B == model")
+        log(f"[time] phase11 {path}: {ms:.3f} ms a step on {n} cards "
+            f"({n_in / ms / 1e3 / n:.0f} Msamples/s a card), {ms_one:.3f} "
+            f"ms on {n} ranks of {dev} ({n_in / ms_one / 1e3:.0f} "
+            f"Msamples/s); the host enqueues a step in {enqueue:.3f} ms; "
+            f"on {smi}")
+        if prof is not None:
+            log(f"[time] phase11 {path} under torch.profiler: "
+                f"{prof.event_ms:.3f} ms of events, host {prof.host_ms:.3f} "
+                f"ms, device busy by card "
+                f"{ {k: round(v, 3) for k, v in prof.busy_by_device.items()} }"
+                f" ms; top {[(r[0][:40], round(r[1], 3)) for r in prof.rows[:4]]}")
+        torch.cuda.empty_cache()
+
+    ta_fused, ta_block2 = P10_A2A_T_LOC["fused"], P10_A2A_T_LOC["block2"]
+    for n in (2, 4):
+        if n > count:
+            log(f"[phase11] {n} cards: {count} visible, skipped")
+            continue
+        w = f"1x{n}"
+        cz_path(f"{w} fused ppermute", "fused", 1, n, CZ_CHANNELS, t_loc,
+                profile=True)
+        cz_path(f"{w} fused rdma", "fused", 1, n, CZ_CHANNELS, t_loc, "rdma")
+        cz_path(f"{w} block2 ppermute", "block2", 1, n, CZ_CHANNELS, t_loc)
+        cz_path(f"{w} block2 rdma", "block2", 1, n, CZ_CHANNELS, t_loc,
+                "rdma")
+        cz_path(f"{w} block2 rdma_fused {CZ_FUSED_CHANNELS}ch", "block2", 1,
+                n, CZ_FUSED_CHANNELS, t_loc, "rdma_fused")
+        cz_path(f"{w} fused rdma a2a", "fused", 1, n, CZ_CHANNELS, ta_fused,
+                "rdma", "a2a")
+        cz_path(f"{w} block2 ppermute a2a", "block2", 1, n, CZ_CHANNELS,
+                ta_block2, "ppermute", "a2a")
+        cz_path(f"{w} block2 rdma_fused a2a {CZ_FUSED_CHANNELS}ch", "block2",
+                1, n, CZ_FUSED_CHANNELS, ta_block2, "rdma_fused", "a2a")
+        cz_path(f"{w} halo_overlap fused rdma", "fused", 1, n, CZ_CHANNELS,
+                t_loc, "rdma", overlap=True)
+        cz_path(f"{w} halo_overlap block2 ppermute", "block2", 1, n,
+                CZ_CHANNELS, t_loc, overlap=True)
+    if count >= 4:
+        for nc, nt in ((2, 2), (4, 1)):
+            w = f"{nc}x{nt}"
+            for m in ("fused", "block2"):
+                cz_path(f"{w} {m} ppermute", m, nc, nt, CZ_CHANNELS,
+                        4 * t_loc // nt)
+            cz_path(f"{w} fused ppermute a2a", "fused", nc, nt, CZ_CHANNELS,
+                    4 * ta_fused // nt, "ppermute", "a2a")
+
+    # ---- B3 and B4 timed across cards, beside the same ranks on dev ------
+    n = min(count, CZ_RANKS)
+    cards = DspMesh([torch.device("cuda", i) for i in range(n)],
+                    (TIME_AXIS,))
+    one = DspMesh([dev] * n, (TIME_AXIS,))
+    taps = chans["block2"].fir_taps
+    for what, fn, cols in (
+            ("halo_ring", lambda p, m: hr.left_halo_ring(
+                p, chans["fused"].h_fir, m), CZ_CHANNELS),
+            ("halo_fir_fused", lambda p, m: hf.block2_fir_halo_fused(
+                p, taps, m, mode="highest"), CZ_FUSED_CHANNELS)):
+        pc = shard(x[:cols, :n * t_loc], cards)
+        po = shard(x[:cols, :n * t_loc], one)
+        ms = cuda_ms(on_mesh(lambda: fn(pc, cards), cards), iters=10)
+        ms_one = cuda_ms(on_mesh(lambda: fn(po, one), one), iters=10)
+        hr.check_exchanges(cards)
+        hr.check_exchanges(one)
+        across_ms[what] = {"ms": ms, "cards": n, "same_ranks_one_card_ms":
+                           ms_one}
+        log(f"[time] phase11 {what} highest, {n} ranks one a card, "
+            f"({cols}, {n * t_loc}): {ms:.3f} ms across cards, {ms_one:.3f} "
+            f"ms on {n} ranks of {dev}, on {smi}")
+        del pc, po
+    del x
+    torch.cuda.empty_cache()
+
+    # ---- the channelizer tool's default mesh: one rank a card -----------
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "spec.npz")
+        seconds = 20.48 * count  # 983 040 samples a rank, the ols frames
+        cz_cli.main(["-o", out, "--synth", "64", "--seconds", str(seconds)]
+                    + list(CZ_TOOL_ARGS))
+        with np.load(out) as z:
+            spec = torch.from_numpy(z["spectra"]).to(dev)
+    ch = Channelizer(fir_taps=chans["fused"].fir_taps, fft_n=2048,
+                     fir_method="ols", device=dev)
+    t_use = int(seconds * 48000) // (ch.block_multiple() * count) \
+        * ch.block_multiple() * count
+    xt = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (64, int(seconds * 48000))).astype(np.float32)[:, :t_use]).to(dev)
+    ref, _ = ch.step(xt, ch.init_state(64))
+    snr = device_snr_db(ref, spec)
+    if spec.shape != ref.shape or not snr >= SHARDED_FLOOR_DB:
+        fail(f"the channelizer tool's default mesh: {snr:.1f} dB")
+    log(f"[phase11] the channelizer tool with no mesh options on {count} "
+        f"cards (one rank a card), {tuple(spec.shape)}: {snr:.1f} dB "
+        f"against Channelizer.step (floor {SHARDED_FLOOR_DB})")
+    del spec, ref, xt
+    torch.cuda.empty_cache()
+    return by_path, across_ms
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Median CUDA-event time of ``fn()`` in milliseconds."""
     import torch
@@ -1966,6 +2274,19 @@ def main() -> int:
         f"{hf.blocks_per_sm(NTAPS, 'high')}, highest "
         f"{hf.blocks_per_sm(NTAPS, 'highest')}")
 
+    if "--only-multicard" in sys.argv[1:]:
+        # phase 11 alone (a rehearsal on several cards), without the
+        # kernels line of a whole run
+        t0 = time.perf_counter()
+        by_path, across = multicard_paths(dev, smi, wrappers)
+        log(f"[phase11] all paths in {time.perf_counter() - t0:.1f} s; "
+            f"launches by path {json.dumps(by_path)}; across cards "
+            f"{json.dumps(across)}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev).manual_seed(0)
     errors = dict.fromkeys(KERNEL_NAMES, 0.0)
@@ -2621,6 +2942,13 @@ def main() -> int:
         by_path[name].update(paths)
         launches[name] += sum(paths.values())
     log(f"[phase10] all paths in {time.perf_counter() - t0:.1f} s")
+    # ---- phase 11: several cards (on one, B3's protocol alone) -----------
+    t0 = time.perf_counter()
+    paths11, across = multicard_paths(dev, smi, wrappers)
+    for name, paths in paths11.items():
+        by_path[name].update(paths)
+        launches[name] += sum(paths.values())
+    log(f"[phase11] all paths in {time.perf_counter() - t0:.1f} s")
     log(f"[memory] peak device memory allocated in this run: "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
 
@@ -2644,6 +2972,9 @@ def main() -> int:
         }
         if name == "halo_ring":
             entry["library_ms_bare"] = copy_bare_ms
+        if name in across:  # phase 11, one rank a card
+            entry["ms_across_cards"] = across[name]["ms"]
+            entry["cards_across"] = across[name]["cards"]
         if (name, "high") in times:
             entry["ms_high"], entry["plain_ms_high"] = \
                 times[(name, "high")][:2]

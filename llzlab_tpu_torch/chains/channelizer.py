@@ -11,9 +11,13 @@ with ``frames="a2a"`` one all-to-all follows the resampler.  Everything
 else is local work: kernel B1 (``fir_method="fused"``) or kernel B2 plus a
 matrix product (``"block2"``), then ``torch.fft``.
 
-One process drives every rank of the mesh (``parallel/mesh.py``), so the
+One process drives every rank it holds (``parallel/mesh.py``), so the
 sharded step takes and returns one tensor per rank where the JAX package
-passes one sharded array through ``shard_map``.
+passes one sharded array through ``shard_map``.  The ranks may sit on
+several cards, and with ``halo="ppermute"`` in several processes
+(``runtime.distributed.global_dsp_mesh``, as the JAX package's step runs
+under ``jax.distributed``): each process then passes and gets back the
+whole stream state on its first rank (``DspMesh.home``).
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from llzlab_tpu_torch.ops import transform as _tf
 from llzlab_tpu_torch.kernels.block2_fir import plain_tables
 from llzlab_tpu_torch.parallel.halo import left_halo, row_values
 from llzlab_tpu_torch.parallel.mesh import (CHANNEL_AXIS, TIME_AXIS, DspMesh,
-                                            note_traffic)
+                                            local_block, note_traffic)
 from llzlab_tpu_torch.parallel.reshard import to_channel_major
 from llzlab_tpu_torch.runtime.platform import kernel_mode
 
@@ -234,7 +238,12 @@ class Channelizer:
         spec=CHANNEL_MAJOR)``).  ``state``: the pair of :meth:`init_state`
         for all ``C`` channels, on rank 0's device; each channel row takes
         its rows, and the state returned holds each row's last rank's
-        tail, copied to rank 0.
+        tail, copied to rank 0.  On a mesh across processes (``ppermute``
+        only) each process passes the state on its own first rank
+        (``mesh.home``), the ranks of other processes are None in
+        ``parts`` and ``spec_parts``, and each row's last rank sends its
+        tail to every process's first rank, so that every process gets
+        the whole state back.
 
         The step's work is queued behind the caller's current stream and
         that stream is made to wait for it; the step does not wait for its
@@ -254,7 +263,10 @@ class Channelizer:
         kernel, which computes every output that needs no halo while the
         tail travels; needs ``fir_method="block2"``; the resampler's halo
         still goes through B3).  The kernels need a 1-D ``(time,)`` mesh
-        of this process's ranks.  On a CPU mesh their plain versions run.
+        of this process's ranks, on one card or several (peer access
+        between them); across processes they raise, since they address
+        the neighbour's buffer by pointer.  On a CPU mesh their plain
+        versions run.
 
         ``halo_overlap``: the linear stages split as ``f(halo, x) = f(0,
         x) + f(halo, 0)``, so that the exchange feeds only a correction of
@@ -278,11 +290,18 @@ class Channelizer:
                              f"({CHANNEL_AXIS!r}, {TIME_AXIS!r}) mesh, got "
                              f"{axes}")
         if halo in ("rdma", "rdma_fused"):
-            if axes != (TIME_AXIS,) or mesh.is_distributed:
+            if mesh.is_distributed:
                 raise ValueError(
                     f"halo={halo!r} needs a 1-D (time,) mesh of this "
-                    "process's ranks: the halo kernels address their right "
-                    "neighbour on one axis (see kernels/halo_ring.py)")
+                    "process's ranks: the halo kernels store into the "
+                    "neighbour's receive buffer and flag by pointer, and "
+                    "another process's buffers would need CUDA IPC; use "
+                    "halo='ppermute' across processes")
+            if axes != (TIME_AXIS,):
+                raise ValueError(
+                    f"halo={halo!r} needs a 1-D (time,) mesh: the halo "
+                    "kernels address their right neighbour on one axis "
+                    "(see kernels/halo_ring.py)")
             if halo == "rdma_fused" and self.fir_method != "block2":
                 raise ValueError(
                     "halo='rdma_fused' fuses the exchange into the "
@@ -303,10 +322,6 @@ class Channelizer:
             raise ValueError(
                 "halo_overlap needs fir_method 'fused' or 'block2' "
                 f"(got {self.fir_method!r})")
-        if mesh.is_distributed:
-            raise ValueError(
-                "sharded_step needs a mesh of this process's ranks: its "
-                "state lives on rank 0")
         n = len(mesh)
         rows = mesh.rows()
         ntaps = len(self.fir_taps)
@@ -316,22 +331,29 @@ class Channelizer:
             return torch.zeros(v.shape[:-1] + (width,), dtype=v.dtype,
                                device=v.device)
 
-        def tails(ends: Sequence[torch.Tensor], h: int):
-            """Rank 0's copy of each row's last rank's last ``h``
-            samples, the rows joined along the channels."""
+        homes = mesh.homes
+
+        def tails(ends: Sequence[torch.Tensor], h: int, ref: torch.Tensor):
+            """Each row's last rank's last ``h`` samples (None where that
+            rank lives in another process) on every process's first rank
+            (rank 0 in one process), the rows joined along the channels on
+            this process's; ``ref``: a block of the same rows and type."""
+            shape = tuple(ref.shape[:-1]) + (h,)
             got = []
             for row, last in zip(rows, ends):
-                tail = last[..., last.shape[-1] - h:]
-                mesh.after(0, row[-1])
-                with mesh.on(0) as rank:
-                    got.append(torch.empty(tail.shape, dtype=tail.dtype,
-                                           device=rank.device).copy_(tail))
+                tail = None if last is None else \
+                    last[..., last.shape[-1] - h:]
+                for home in homes:
+                    v = mesh.move(row[-1], home, tail, shape, ref.dtype)
+                    if home == mesh.home:
+                        got.append(v)
             note_traffic("collective-permute",
-                         tail.numel() * tail.element_size(),
-                         sum(row[-1] != 0 for row in rows))
+                         int(np.prod(shape)) * ref.element_size(),
+                         sum(home != row[-1] for row in rows
+                             for home in homes))
             if len(got) == 1:
                 return got[0]
-            with mesh.on(0):
+            with mesh.on(mesh.home):
                 return torch.cat(got, dim=0)
 
         def fused_row(rmesh, xs, fir_st):
@@ -408,6 +430,7 @@ class Channelizer:
             if len(parts) != n:
                 raise ValueError(f"{len(parts)} blocks for {n} ranks")
             fir_st, rs_st = state
+            ref = local_block(parts)
             mesh.fork()
             if len(rows) > 1:
                 fir_rows = row_values(fir_st, mesh)
@@ -420,6 +443,14 @@ class Channelizer:
                 rmesh = mesh.row(c)
                 xs = [parts[r] for r in row]
                 x_ends.append(xs[-1])
+                if all(v is None for v in xs):
+                    # a row of other processes: note its halos, as they do
+                    for h in (self.h_fir, self.h_rs):
+                        note_traffic("collective-permute",
+                                     ref.shape[0] * h * ref.element_size(),
+                                     (len(row) - 1) * (h > 0))
+                    y_ends.append(None)
+                    continue
                 if self.fir_method == "fused":
                     zs = fused_row(rmesh, xs, fir_rows[c])
                 else:
@@ -429,10 +460,10 @@ class Channelizer:
                 for r, v in zip(row, zs):
                     z[r] = v
             if self.fir_method == "fused":
-                new_state = (tails(x_ends, self.h_fir), rs_st)
+                new_state = (tails(x_ends, self.h_fir, ref), rs_st)
             else:
-                new_state = (tails(x_ends, self.h_fir),
-                             tails(y_ends, self.h_rs))
+                new_state = (tails(x_ends, self.h_fir, ref),
+                             tails(y_ends, self.h_rs, ref))
             if frames == "a2a":
                 z = to_channel_major(z, mesh)
             spec = mesh.map(self._frames, z)

@@ -13,8 +13,10 @@ channels, which the file keeps, as there.
 
 The mesh: one rank per visible card by default (one on a machine with one
 card); ``--mesh-channel N --mesh-time M`` puts N × M ranks on the cards,
-dealt out in equal runs (either alone: the other is 1); ``--cpu`` runs a
-mesh of CPU ranks.
+dealt out by ``parallel.mesh.deal_devices`` (``--mesh-channel`` alone:
+time fills the cards; ``--mesh-time`` alone: one channel row); ``--cpu``
+runs a mesh of CPU ranks.  One process drives every rank, as the JAX
+package's tool does.
 """
 
 import argparse
@@ -22,6 +24,14 @@ import sys
 import time
 
 import numpy as np
+
+
+def mesh_shape(mesh_channel, mesh_time, count: int):
+    """The tool's ``(n_channel, n_time)`` on ``count`` cards: what the
+    options give, the time axis filling the cards where ``--mesh-time``
+    is not given (one rank a card by default)."""
+    nc = mesh_channel or 1
+    return nc, mesh_time or max(count // nc, 1)
 
 
 def main(argv=None):
@@ -62,15 +72,14 @@ def main(argv=None):
         ).astype(np.float32)
         rate = args.rate
 
-    nc = args.mesh_channel or 1
     if args.cpu:
-        devices = ["cpu"] * (nc * (args.mesh_time or 1))
+        nc, nt = mesh_shape(args.mesh_channel, args.mesh_time, 1)
+        mesh = make_dsp_mesh(nc, nt, devices=["cpu"] * (nc * nt))
     else:
         require_cuda()
-        count = torch.cuda.device_count()
-        n = nc * (args.mesh_time or max(count // nc, 1))
-        devices = [torch.device("cuda", i * count // n) for i in range(n)]
-    mesh = make_dsp_mesh(nc, len(devices) // nc, devices=devices)
+        nc, nt = mesh_shape(args.mesh_channel, args.mesh_time,
+                            torch.cuda.device_count())
+        mesh = make_dsp_mesh(nc, nt)
     chan = Channelizer(
         fir_taps=firwin(args.fir_taps, 0.4, window="hamming"),
         fft_n=args.fft,

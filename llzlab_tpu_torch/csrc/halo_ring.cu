@@ -18,12 +18,14 @@
 //                    receive buffer, no flag, no counter, nothing to wait
 //                    for: stream order alone makes x ready.
 //   cross-card edge  the protocol of halo_exchange.cuh: the card's last shard
-//                    sends its tails into the next card's receive buffer and
-//                    publishes the epoch; the card's first shard waits for
-//                    the epoch in its own flag and copies its buffer out.
-//                    UNVERIFIED: this branch has never run, for want of a
-//                    machine with two cards; kernel B4 runs the same
-//                    protocol between shards of one card.
+//                    sends its tails into the next card's receive buffer
+//                    (NVLink stores, peer access enabled by
+//                    halo_enable_peer_access) and publishes the epoch; the
+//                    card's first shard waits for the epoch in its own flag
+//                    and copies its buffer out.  The wrapper can also launch
+//                    each shard of one card alone, on its own stream, so
+//                    that every edge takes this branch (a check of the
+//                    protocol on a machine with one card).
 //
 // The send precedes the wait in every block, so a card that holds a single
 // shard (whose blocks do both) cannot wait for a sender queued behind it.
@@ -99,4 +101,28 @@ extern "C" int halo_ring_launch(const HaloRank* ranks, int n, int c, int h,
       tab, c, h, send_x, send_stride, send_t, nbr_buf, nbr_flag, counter,
       epoch, limit_ns);
   return (int)cudaGetLastError();
+}
+
+// Let kernels of card `dev` load from and store into memory of card `peer`
+// (cudaDeviceEnablePeerAccess from dev's context; one direction).  The
+// current device is left as it was.  Returns 0 when this call enabled the
+// access, -1 when it was enabled already (cudaErrorPeerAccessAlreadyEnabled,
+// cleared), else the CUDA error code.
+extern "C" int halo_enable_peer_access(int dev, int peer) {
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return (int)e;
+  int rc = 0;
+  e = cudaSetDevice(dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceEnablePeerAccess(peer, 0);
+    if (e == cudaErrorPeerAccessAlreadyEnabled) {
+      (void)cudaGetLastError();  // not sticky: clear it
+      e = cudaSuccess;
+      rc = -1;
+    }
+  }
+  const cudaError_t back = cudaSetDevice(prev);
+  if (e != cudaSuccess) return (int)e;
+  return back != cudaSuccess ? (int)back : rc;
 }

@@ -187,7 +187,8 @@ def block2_fir_halo_fused_cuda(parts: Sequence[torch.Tensor], taps,
                                ) -> List[torch.Tensor]:
     """Launch kernel B4 once per rank, in rank order, each on its rank's
     stream.  ``parts[r]``: contiguous ``(C, T_loc)`` f32 on rank ``r``'s
-    device."""
+    device.  ``.launches`` counts the launches, ``.cross_card_launches``
+    those with a neighbour on another card."""
     taps, block, h = _check(parts, taps, mesh, first_shard_value, mode)
     b, t = parts[0].shape
     for r, part in enumerate(parts):
@@ -223,12 +224,16 @@ def block2_fir_halo_fused_cuda(parts: Sequence[torch.Tensor], taps,
             _build.check(rc, "halo_fir_fused")
             ex.launched(r)
         block2_fir_halo_fused_cuda.launches += 1
+        if any(mesh.ranks[q].device != rank.device
+               for q in (r - 1, r + 1) if 0 <= q < len(parts)):
+            block2_fir_halo_fused_cuda.cross_card_launches += 1
         out.append(y)
     note_traffic("collective-permute", 4 * b * h, len(parts) - 1)
     return out
 
 
 block2_fir_halo_fused_cuda.launches = 0
+block2_fir_halo_fused_cuda.cross_card_launches = 0
 
 
 def block2_fir_halo_fused(parts: Sequence[torch.Tensor], taps, mesh: DspMesh,

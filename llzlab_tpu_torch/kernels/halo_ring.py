@@ -30,13 +30,27 @@ edge first needs them, and a stream event that keeps the send of call
 ``e + 1`` behind the receiver's launch of call ``e``, so that it never
 lands on a halo that is still being read.  A receiver whose sender never
 comes gives up after ``WAIT_LIMIT_S`` and sets an error word in pinned host
-memory; :meth:`HaloExchange.check` raises on it.  The cross-card branch of
-B3 is unverified: it has never run, for want of a machine with two cards.
+memory; :meth:`HaloExchange.check` raises on it.
+
+Between cards the kernels store into the neighbour card's memory over
+NVLink: :func:`enable_peer_access` enables that explicitly, in both
+directions, when an edge is first made, and a pair of cards without peer
+access raises (nothing is staged through the host).  The cross-card branch
+of B3, and B4 with its neighbours on other cards, ran on four H100s of one
+host joined by NVLink: 1-D meshes laid out ``[0, 0, 1, 1]``, ``[0, 1, 2,
+3]``, ``[0, 0, 0, 0, 1, 1, 1, 1]`` and the channelizer on 2 and 4 cards,
+each bitwise the same ranks on one card (``tests/test_torch_multicard.py``,
+``chip_smoke.py`` phase 11).  ``left_halo_ring_cuda(..., _per_rank=True)``
+launches each rank alone on its own stream, so that every edge runs the
+protocol, also between ranks of one card: phase 11 checks the protocol so
+on a machine with one card.  The ranks of another process have no pointer
+here: a mesh across processes raises (it would need CUDA IPC).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import List, Optional, Sequence
 
 import torch
@@ -47,7 +61,7 @@ from llzlab_tpu_torch.parallel.mesh import TIME_AXIS, DspMesh, note_traffic
 
 __all__ = ["left_halo_ring", "left_halo_ring_cuda", "left_halo_ring_plain",
            "HaloExchange", "check_exchanges", "ranks_by_card",
-           "same_card_edges", "WAIT_LIMIT_S"]
+           "same_card_edges", "enable_peer_access", "WAIT_LIMIT_S"]
 
 #: how long a receiving kernel waits for its sender before it gives up
 WAIT_LIMIT_S = 4.0
@@ -125,7 +139,7 @@ class HaloExchange:
         if self.bufs[r] is None:
             src, dst = (self.mesh.ranks[q].device for q in (r - 1, r))
             if src != dst:
-                _enable_peer_access(src, dst)
+                enable_peer_access(src, dst)
             self.bufs[r] = torch.empty((self.c, self.h), dtype=torch.float32,
                                        device=dst)
             self.flags[r] = torch.zeros(1, dtype=torch.int32, device=dst)
@@ -185,14 +199,41 @@ class HaloExchange:
                          if event is None else event)
 
 
-def _enable_peer_access(a: torch.device, b: torch.device) -> None:
-    """Make ``a``'s kernels able to write ``b``'s memory.  PyTorch enables
-    peer access between two cards at their first direct copy."""
-    if not torch.cuda.can_device_access_peer(a.index, b.index):
-        raise RuntimeError(f"no peer access from {a} to {b}: the halo "
-                           f"kernels write the neighbour's buffer directly")
-    torch.zeros(1, device=a).to(b)
-    torch.zeros(1, device=b).to(a)
+def _expandable_segments() -> bool:
+    """Whether PyTorch's allocator maps memory in expandable segments
+    (``PYTORCH_CUDA_ALLOC_CONF`` / ``PYTORCH_ALLOC_CONF``)."""
+    conf = ",".join(os.environ.get(v, "") for v in (
+        "PYTORCH_CUDA_ALLOC_CONF", "PYTORCH_ALLOC_CONF"))
+    return "expandable_segments:true" in conf.replace(" ", "").lower()
+
+
+def enable_peer_access(a: torch.device, b: torch.device) -> List[int]:
+    """Let kernels of card ``a`` store into card ``b``'s memory, and of
+    ``b`` into ``a``'s: ``cudaDeviceEnablePeerAccess`` in both directions,
+    from the build's C library (``halo_enable_peer_access``).  Returns,
+    per direction, 0 where this call enabled the access and -1 where it
+    was enabled already.  Raises for a pair without peer access (the halo
+    kernels write the neighbour's buffer directly; nothing falls back to
+    copies through the host), and under PyTorch's expandable segments,
+    whose memory a peer reaches only after ``cuMemSetAccess`` on each
+    segment."""
+    for src, dst in ((a, b), (b, a)):
+        if not torch.cuda.can_device_access_peer(src.index, dst.index):
+            raise RuntimeError(
+                f"no peer access from {src} to {dst}: the halo kernels "
+                f"write the neighbour card's buffer directly")
+    if _expandable_segments():
+        raise RuntimeError(
+            "the halo kernels between cards need PyTorch's default "
+            "allocator: under expandable_segments (PYTORCH_CUDA_ALLOC_CONF)"
+            " a peer card reaches memory only after cuMemSetAccess")
+    lib = _build.load("halo_ring", _declare)
+    got = []
+    for src, dst in ((a, b), (b, a)):
+        rc = lib.halo_enable_peer_access(src.index, dst.index)
+        _build.check(max(rc, 0), f"peer access from {src} to {dst}")
+        got.append(rc)
+    return got
 
 
 def check_exchanges(mesh: DspMesh, after=None) -> None:
@@ -238,17 +279,25 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.halo_ring_launch.argtypes = [p, i, i, i, p, ll, i, p, p, p, i, ll, p]
     lib.halo_ring_launch.restype = i
+    lib.halo_enable_peer_access.argtypes = [i, i]
+    lib.halo_enable_peer_access.restype = i
 
 
 def left_halo_ring_cuda(parts: Sequence[torch.Tensor], h: int, mesh: DspMesh,
-                        *, first_shard_value: Optional[torch.Tensor] = None
-                        ) -> List[torch.Tensor]:
+                        *, first_shard_value: Optional[torch.Tensor] = None,
+                        _per_rank: bool = False) -> List[torch.Tensor]:
     """Launch kernel B3 once per card, on the stream of the card's first
     rank; the stream of every other rank of the card is ordered before and
     behind the launch by one event.  ``parts[r]``: ``(C, T)`` f32 on rank
     ``r``'s device, unit stride along time (rows may be strided).  Returns
     one ``(C, h)`` halo per rank, slices of one tensor per card whose memory
-    is held until every rank's stream is done with it (``record_stream``)."""
+    is held until every rank's stream is done with it (``record_stream``).
+
+    ``.launches`` counts the launches; ``.cross_card_launches`` those of
+    them that send to or wait for another card.  ``_per_rank`` (for the
+    checks of the protocol, not an entry point): launch each rank alone on
+    its own stream, every edge through the send / wait protocol, also
+    between ranks of one card."""
     check_time_mesh(mesh, parts)
     c, t = parts[0].shape if parts[0].dim() == 2 else (0, 0)
     for r, part in enumerate(parts):
@@ -270,11 +319,16 @@ def left_halo_ring_cuda(parts: Sequence[torch.Tensor], h: int, mesh: DspMesh,
     if c == 0 or h == 0:  # nothing to exchange, nothing launched
         return [torch.empty((c, h), dtype=torch.float32, device=rank.device)
                 for rank in mesh.ranks]
-    if "halo_ring_layout" not in mesh.cache:
+    key = ("halo_ring_layout", _per_rank)
+    if key not in mesh.cache:
         devices = [rank.device for rank in mesh.ranks]
-        mesh.cache["halo_ring_layout"] = (ranks_by_card(devices),
-                                          same_card_edges(devices))
-    cards, same_card = mesh.cache["halo_ring_layout"]
+        cards = ranks_by_card(devices)
+        mesh.cache[key] = (
+            [[r] for r in range(len(devices))] if _per_rank else cards,
+            [False] * (len(devices) - 1) if _per_rank
+            else same_card_edges(devices),
+            same_card_edges(devices))
+    cards, same_card, on_one_card = mesh.cache[key]
     lib = _build.load("halo_ring", _declare)
     ex = HaloExchange.of(mesh, c, h)
     epoch = ex.begin()
@@ -318,6 +372,9 @@ def left_halo_ring_cuda(parts: Sequence[torch.Tensor], h: int, mesh: DspMesh,
                 int(WAIT_LIMIT_S * 1e9), stream.cuda_stream)
             _build.check(rc, "halo_ring")
             left_halo_ring_cuda.launches += 1
+            if (send and not on_one_card[last]) or (
+                    first and not on_one_card[first - 1]):
+                left_halo_ring_cuda.cross_card_launches += 1
             if table[0].flag:  # the next send into this buffer waits for
                 done = stream.record_event()  # this: an event that is kept
                 ex.launched(first, done)
@@ -334,6 +391,7 @@ def left_halo_ring_cuda(parts: Sequence[torch.Tensor], h: int, mesh: DspMesh,
 
 
 left_halo_ring_cuda.launches = 0
+left_halo_ring_cuda.cross_card_launches = 0
 
 
 def left_halo_ring(parts: Sequence[torch.Tensor], h: int, mesh: DspMesh, *,

@@ -53,7 +53,8 @@ def row_values(value: Optional[torch.Tensor], mesh: DspMesh
     """A ``(C, …)`` value (a carried stream state) split into the rows of
     each channel row of the mesh, each on the device of the row's first
     rank (None where that rank lives in another process, or for a None
-    value).  The copies run on those ranks' streams: call it after
+    value).  A copy between cards runs on the stream of this process's
+    first rank, where the value lives (``DspMesh.copy_to``): call it after
     ``mesh.fork``."""
     rows = mesh.rows()
     if value is None:
@@ -62,8 +63,9 @@ def row_values(value: Optional[torch.Tensor], mesh: DspMesh
         raise ValueError(f"state of {value.shape[0]} channels on "
                          f"{len(rows)} channel rows")
     cl = value.shape[0] // len(rows)
-    return [mesh.run(row[0], lambda c, rank: value[c * cl:(c + 1) * cl].to(
-        rank.device), c, mesh.ranks[row[0]]) for c, row in enumerate(rows)]
+    return [mesh.run(row[0], lambda c, rank: mesh.copy_to(
+        mesh.home, value[c * cl:(c + 1) * cl], rank.device), c,
+        mesh.ranks[row[0]]) for c, row in enumerate(rows)]
 
 
 def _start(x: torch.Tensor, h: int, first: Optional[torch.Tensor]):

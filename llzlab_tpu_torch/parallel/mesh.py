@@ -6,8 +6,14 @@ a stream of its own.  One process drives every rank it holds, as one
 controller drives ``shard_map`` in the JAX package: sharded code loops over
 the ranks and runs each rank's share under :meth:`DspMesh.on`.  Ranks may
 share a card (every rank on ``cuda:0`` is the default on a machine with
-one card) or sit on several; work of different ranks is ordered by stream
-events (:meth:`DspMesh.after`), never by the host.
+one card) or sit on several (:func:`deal_devices` deals them out, one
+rank a card where there are enough); work of different ranks is ordered
+by stream events (:meth:`DspMesh.after`), never by the host.  A copy
+between two cards (:meth:`DspMesh.copy_to`) runs on the source rank's
+stream, fenced by events on both sides, and the receiving rank's stream
+waits for it: PyTorch runs such a copy on the source card's current
+stream, and there it would queue behind the source rank's kernels for the
+card's SMs.
 
 ``DspMesh(devices, axis_names)`` mirrors ``jax.sharding.Mesh``;
 ``DspMesh(["cpu"] * 4, (TIME_AXIS,))`` is the 1-D time mesh the tests run,
@@ -65,6 +71,7 @@ __all__ = [
     "Rank",
     "DspMesh",
     "make_dsp_mesh",
+    "deal_devices",
     "channel_time_spec",
     "local_block",
     "shard",
@@ -290,27 +297,49 @@ class DspMesh:
                 rank.stream.wait_event(self.ranks[o].mark())
 
     def fork(self) -> None:
-        """Order every rank's later work after the caller's current
-        stream on that rank's device."""
-        for dev, ranks in self._cards.items():
+        """Order every rank's later work after what the caller's current
+        stream of every card the mesh touches has been given so far (a
+        rank of card ``b`` may read what the caller wrote on card
+        ``a``)."""
+        events = []
+        for dev in self._cards:
             event = self._fork_events[dev]
             event.record(torch.cuda.current_stream(dev))
+            events.append(event)
+        for ranks in self._cards.values():
             for rank in ranks:
-                rank.stream.wait_event(event)
+                for event in events:
+                    rank.stream.wait_event(event)
 
     def join(self) -> None:
-        """Order the caller's current stream (on each rank's device) after
-        what every rank has been given so far."""
-        for dev, ranks in self._cards.items():
+        """Order the caller's current stream of every card the mesh
+        touches after what every rank, of every card, has been given so
+        far."""
+        marks = [rank.mark() for ranks in self._cards.values()
+                 for rank in ranks]
+        for dev in self._cards:
             current = torch.cuda.current_stream(dev)
-            for rank in ranks:
-                current.wait_event(rank.mark())
+            for event in marks:
+                current.wait_event(event)
 
     def synchronize(self) -> None:
-        """Block the host until every rank's stream has drained."""
+        """Block the host until every rank's stream, and the caller's
+        current stream of every card the mesh touches, has drained."""
         for rank in self.ranks:
             if rank.stream is not None:
                 rank.stream.synchronize()
+        for dev in self._cards:
+            torch.cuda.current_stream(dev).synchronize()
+
+    @property
+    def homes(self) -> List[int]:
+        """Each process's first rank, in process order: where that
+        process keeps a value of the whole mesh (``[0]`` on a mesh of one
+        process)."""
+        firsts: Dict[Optional[int], int] = {}
+        for r, rank in enumerate(self.ranks):
+            firsts.setdefault(rank.process, r)
+        return [firsts[p] for p in sorted(firsts, key=lambda p: p or 0)]
 
     def fetch(self, src: int, dst: int, value: Optional[torch.Tensor],
               shape, dtype) -> Optional[torch.Tensor]:
@@ -342,11 +371,30 @@ class DspMesh:
             value.record_stream(d_rank.stream)
         return value
 
+    def copy_to(self, src: int, value: torch.Tensor, device) -> torch.Tensor:
+        """Rank ``src``'s ``value`` on ``device``: itself where it lies
+        there, else a copy that runs on ``src``'s stream (call it under
+        :meth:`on` of the receiving rank, whose stream then waits for the
+        copy).  PyTorch copies between cards on the source card's current
+        stream, fenced by events against the destination card's current
+        stream; on the caller's stream of the source card, a copy queued
+        while the source rank's kernel fills the card would wait for SMs
+        until that kernel ends, and the receiving rank with it (the
+        ranks' steps on several cards then run one after the other)."""
+        device = torch.device(device)
+        rank = self.ranks[src]
+        if value.device == device or rank.stream is None or \
+                value.device != rank.device:
+            return value.to(device)
+        with torch.cuda.stream(rank.stream):
+            return value.to(device)
+
     def move(self, src: int, dst: int, value: Optional[torch.Tensor],
              shape, dtype) -> Optional[torch.Tensor]:
         """Rank ``src``'s ``value`` as a new tensor on rank ``dst``'s
         device: :meth:`fetch` where a rank lives in another process, else
-        a copy on ``dst``'s stream, ordered after ``src``'s work.  The
+        a copy on ``dst``'s stream (on ``src``'s between cards,
+        :meth:`copy_to`), ordered after ``src``'s work.  The
         copy reads ``value`` later than the call returns: its memory must
         not go back to ``src``'s stream before ``dst``'s work is joined
         (a step's ``fork`` / ``join`` keeps it; a caller that frees it
@@ -357,6 +405,8 @@ class DspMesh:
             return self.fetch(src, dst, value, shape, dtype)
         self.after(dst, src)
         with self.on(dst) as rank:
+            if value.device != rank.device:
+                return self.copy_to(src, value.to(dtype), rank.device)
             return torch.empty(tuple(shape), dtype=dtype,
                                device=rank.device).copy_(value)
 
@@ -368,6 +418,19 @@ def _largest_pow2_factor(n: int) -> int:
     return f
 
 
+def deal_devices(n: int, count: int) -> List[torch.device]:
+    """``n`` ranks dealt onto ``count`` CUDA cards: rank ``i`` on card
+    ``i · min(n, count) // n``.  One rank a card where there are enough
+    cards (the first ``n``), else equal runs of consecutive ranks, so that
+    time neighbours share a card where they can and the ranks of a card
+    are consecutive, as the halo kernels need (``kernels.halo_ring
+    .ranks_by_card``).  The one way the port deals ranks onto cards."""
+    if n < 1 or count < 1:
+        raise ValueError(f"cannot deal {n} ranks onto {count} cards")
+    used = min(n, count)
+    return [torch.device("cuda", i * used // n) for i in range(n)]
+
+
 def make_dsp_mesh(
     n_channel: Optional[int] = None,
     n_time: Optional[int] = None,
@@ -377,20 +440,18 @@ def make_dsp_mesh(
     """Build a ``(channel, time)`` mesh of ``n_channel · n_time`` ranks.
 
     ``devices``: one device spec per rank; an explicit smaller shape uses a
-    prefix.  Default: the visible CUDA cards, the ranks dealt out in
-    equal contiguous runs, so that time neighbours share a card where
-    they can (every rank on ``cuda:0`` with one card); raises without a
-    card.  With only a device list, the split favours the time axis, as
-    in the JAX package.
+    prefix.  Default: the visible CUDA cards, the ranks dealt out by
+    :func:`deal_devices` (one a card where there are enough, every rank
+    on ``cuda:0`` with one card); raises without a card.  With only a
+    device list, the split favours the time axis, as in the JAX package.
     """
     if devices is None:
         require_cuda()
         if n_channel is None or n_time is None:
             raise ValueError("without a device list, give both n_channel "
                              "and n_time")
-        count = torch.cuda.device_count()
-        n = n_channel * n_time
-        devices = [torch.device("cuda", i * count // n) for i in range(n)]
+        devices = deal_devices(n_channel * n_time,
+                               torch.cuda.device_count())
     devs = list(devices)
     n = len(devs)
     if n_channel is None and n_time is None:

@@ -71,8 +71,9 @@ def _all_to_all(parts: Sequence[Optional[torch.Tensor]], mesh: DspMesh,
         return v[i * cs:(i + 1) * cs] if to_channel else \
             v[..., i * ts:(i + 1) * ts]
 
-    def join(rank, *pieces):
-        return torch.cat([p.to(rank.device) for p in pieces],
+    def join(rank, row, *pieces):
+        return torch.cat([mesh.copy_to(src, p, rank.device)
+                          for src, p in zip(row, pieces)],
                          dim=-1 if to_channel else 0)
 
     out: List[Optional[torch.Tensor]] = [None] * len(parts)
@@ -81,7 +82,7 @@ def _all_to_all(parts: Sequence[Optional[torch.Tensor]], mesh: DspMesh,
             pieces = [mesh.fetch(src, dst,
                                  mesh.run(src, piece, parts[src], i),
                                  shape, ref.dtype) for src in row]
-            out[dst] = mesh.run(dst, join, mesh.ranks[dst], *pieces)
+            out[dst] = mesh.run(dst, join, mesh.ranks[dst], row, *pieces)
     # the JAX package's count: per-device payload × participants, over
     # the groups (one group per channel row)
     note_traffic("all-to-all", ref.numel() * ref.element_size(), len(parts))

@@ -117,9 +117,10 @@ def _state_out(per_rank: Sequence[Optional[torch.Tensor]], mesh: DspMesh):
             raise ValueError("a streaming state needs a rank of every "
                              "channel row in this process")
         mesh.after(home, mine[0])
-        got.append(per_rank[mine[0]])
+        got.append((mine[0], per_rank[mine[0]]))
     return mesh.run(home, lambda rank: torch.cat(
-        [v.to(rank.device) for v in got], dim=0), mesh.ranks[home])
+        [mesh.copy_to(r, v, rank.device) for r, v in got], dim=0),
+        mesh.ranks[home])
 
 
 def _history_op(parts, mesh, h: int, state, local_fn):

@@ -21,7 +21,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from llzlab_tpu_torch.parallel.mesh import DspMesh, note_traffic
+from llzlab_tpu_torch.parallel.mesh import DspMesh, deal_devices, note_traffic
 from llzlab_tpu_torch.runtime.platform import require_cuda
 
 __all__ = ["stage_pipeline", "make_stage_mesh", "STAGE_AXIS"]
@@ -31,13 +31,12 @@ STAGE_AXIS = "stage"
 
 def make_stage_mesh(n_stages: int, devices=None) -> DspMesh:
     """A 1-D ``stage`` mesh of ``n_stages`` ranks: on ``devices`` (a
-    prefix), else on the visible CUDA cards, dealt out in equal runs
-    (every rank on ``cuda:0`` with one card); raises without a card."""
+    prefix), else on the visible CUDA cards, dealt out by
+    ``parallel.mesh.deal_devices`` (every rank on ``cuda:0`` with one
+    card); raises without a card."""
     if devices is None:
         require_cuda()
-        count = torch.cuda.device_count()
-        devices = [torch.device("cuda", i * count // n_stages)
-                   for i in range(n_stages)]
+        devices = deal_devices(n_stages, torch.cuda.device_count())
     devs = list(devices)
     if len(devs) < n_stages:
         raise ValueError(f"need {n_stages} devices, have {len(devs)}")

@@ -11,11 +11,15 @@ group without NCCL raises), gloo for CPU ranks.
 :func:`global_dsp_mesh` deals ranks over every process's devices: each
 process holds its own ranks, the others are remote ranks of the same
 ``DspMesh``.  Only the exchange points cross a process boundary
-(``DspMesh.move``: the halo, the reshard, the IIR carry, the heartbeat's
-``all_reduce``); kernels B3 and B4 raise on such a mesh.  NCCL between two
-or more processes is unverified: the machine the port was checked on has
-one card, and NCCL refuses two processes on one card, so there the CUDA
-path runs as a group of one.
+(``DspMesh.move``: the halo, the state tails, the reshard, the IIR carry,
+the heartbeat's ``all_reduce``), so the sharded ops and the channelizer's
+``sharded_step`` with ``halo="ppermute"`` run on such a mesh; kernels B3
+and B4 raise on it (they address the neighbour's buffer by pointer).
+NCCL ran between 2 and 4 processes of one machine, a card each, bit for
+bit one process's mesh (``tests/test_torch_distributed.py``,
+``tests/test_torch_multicard.py``); across hosts it is unverified.  NCCL
+refuses two processes on one card: there the CUDA path runs as a group of
+one.
 """
 
 from __future__ import annotations

@@ -27,6 +27,8 @@ class DeviceProfile:
     event_ms: float
     #: host time to enqueue a call
     host_ms: float
+    #: ``busy_ms`` split by card: ``{device index: ms}``
+    busy_by_device: dict = dataclasses.field(default_factory=dict)
 
     @property
     def idle_pct(self) -> float:
@@ -34,16 +36,22 @@ class DeviceProfile:
         return 100.0 * max(0.0, 1.0 - self.busy_ms / self.event_ms)
 
 
-def profile_calls(fn: Callable[[], object],
-                  iters: int = 1) -> Optional[DeviceProfile]:
+def profile_calls(fn: Callable[[], object], iters: int = 1,
+                  trace: Optional[str] = None) -> Optional[DeviceProfile]:
     """Run ``fn()`` ``iters`` times back to back under ``torch.profiler``
-    on the current CUDA stream and return what the card did per call;
-    ``None`` where the profiler saw no device time.  Warm ``fn`` up
-    first: its first call may build kernels and tables."""
+    on the current CUDA stream and return what the cards did per call;
+    ``None`` where the profiler saw no device time.  Every visible card is
+    drained before and after.  ``trace``: also write the timeline there
+    (``export_chrome_trace``).  Warm ``fn`` up first: its first call may
+    build kernels and tables."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
+    def sync_all():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    sync_all()
     begin = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
@@ -54,7 +62,14 @@ def profile_calls(fn: Callable[[], object],
             fn()
         end.record()
         host_ms = (time.perf_counter() - t0) * 1e3 / iters
-        torch.cuda.synchronize()
+        sync_all()
+    if trace:
+        prof.export_chrome_trace(trace)
+    by_device: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_device[e.device_index] = by_device.get(e.device_index, 0.0) \
+                + e.time_range.elapsed_us() / 1e3 / iters
     rows = [(e.key, e.device_time_total / 1e3 / iters, e.count / iters)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
@@ -68,4 +83,4 @@ def profile_calls(fn: Callable[[], object],
     return DeviceProfile(rows=rows, kernels=sum(r[2] for r in rows) - copies,
                          copies=copies, busy_ms=busy,
                          event_ms=begin.elapsed_time(end) / iters,
-                         host_ms=host_ms)
+                         host_ms=host_ms, busy_by_device=by_device)

@@ -3,12 +3,16 @@
 time on the GPU.
 
 Runs ``Channelizer.sharded_step`` (``llzlab_tpu_torch``) on a 1-D time mesh
-whose ranks all sit on the current card, a few steps under
-``torch.profiler``, and prints the device time of each kernel per step
-(summed over the ranks' streams), the step's CUDA-event time and the host
-time to enqueue it.  Needs one CUDA GPU.
+whose ranks sit on the current card (or, with ``--cards N``, are dealt
+onto the first N cards by ``parallel.mesh.deal_devices``), a few steps
+under ``torch.profiler``, and prints the device time of each kernel per
+step (summed over the ranks' streams), the device time of each card, the
+step's CUDA-event time and the host time to enqueue it; ``--trace PATH``
+also writes the timeline.  Needs one CUDA GPU, or N.
 
     python3 scripts/profile_channelizer_torch.py --method fused --halo rdma
+    python3 scripts/profile_channelizer_torch.py --ranks 4 --cards 4 \
+        --halo ppermute --trace step_4cards.json
 """
 
 from __future__ import annotations
@@ -31,13 +35,16 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cards", type=int, default=1)
+    ap.add_argument("--trace", default=None)
     args = ap.parse_args()
 
     import torch
 
     from llzlab_tpu_torch import Channelizer, shard_time
     from llzlab_tpu_torch.kernels.halo_ring import check_exchanges
-    from llzlab_tpu_torch.parallel.mesh import TIME_AXIS, DspMesh
+    from llzlab_tpu_torch.parallel.mesh import (TIME_AXIS, DspMesh,
+                                                deal_devices)
     from llzlab_tpu_torch.runtime.platform import require_cuda
     from llzlab_tpu_torch.runtime.profiler import profile_calls
 
@@ -47,7 +54,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[dev.index or 0]
     chan = Channelizer(fir_method=args.method, device=dev)
-    mesh = DspMesh([dev] * args.ranks, (TIME_AXIS,))
+    mesh = DspMesh([dev] * args.ranks if args.cards == 1 else
+                   deal_devices(args.ranks, args.cards), (TIME_AXIS,))
     t_loc = chan.block_multiple()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     x = torch.randn((args.channels, args.ranks * t_loc), generator=gen,
@@ -64,17 +72,19 @@ def main() -> int:
         nonlocal state
         _, state = step(parts, state)
 
-    prof = profile_calls(one_step, args.steps)
+    prof = profile_calls(one_step, args.steps, trace=args.trace)
     check_exchanges(mesh)
     if prof is None:
         print("torch.profiler saw no device time", file=sys.stderr)
         return 1
     print(f"[profile] {smi}; fir_method={args.method} halo={args.halo} "
-          f"{args.channels} x {args.ranks * t_loc} on {args.ranks} ranks, "
-          f"{args.steps} steps under torch.profiler")
+          f"{args.channels} x {args.ranks * t_loc} on {args.ranks} ranks "
+          f"({[str(r.device) for r in mesh.ranks]}), {args.steps} steps "
+          f"under torch.profiler")
     print(f"[profile] per step: CUDA events {prof.event_ms:.3f} ms, host "
           f"enqueue {prof.host_ms:.3f} ms, kernel time summed over streams "
-          f"{prof.busy_ms:.3f} ms")
+          f"{prof.busy_ms:.3f} ms; by card "
+          f"{ {k: round(v, 3) for k, v in prof.busy_by_device.items()} }")
     for key, ms, count in prof.rows[: args.top]:
         print(f"[profile] {ms:9.3f} ms  {100 * ms / prof.busy_ms:5.1f} %  "
               f"{count:6.1f} launches  {key[:90]}")

@@ -226,9 +226,8 @@ def test_modes_reject_what_the_reference_rejects():
         port_b.sharded_step(DspMesh(["cpu"] * 4, (TIME_AXIS,)),
                             halo="rdma_fused", halo_overlap=True)
     remote = DspMesh(["cpu"] * 4, (TIME_AXIS,), processes=[0, 0, 1, 1])
-    with pytest.raises(ValueError, match="1-D"):
+    with pytest.raises(ValueError, match="1-D.*CUDA IPC"):
         port_b.sharded_step(remote, halo="rdma")
-    with pytest.raises(ValueError, match="this process"):
-        port_b.sharded_step(remote)
+    port_b.sharded_step(remote)  # ppermute runs across processes
     with pytest.raises(ValueError, match="mesh"):
         port_b.sharded_step(DspMesh(["cpu"] * 2, ("stage",)))

@@ -211,6 +211,64 @@ def test_halo_ring_kernel_matches_plain_version(h, with_carry):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h", [7, 63, 128])
+def test_halo_ring_protocol_branch_on_one_card(h):
+    """Each rank launched alone on its own stream: every edge runs the send
+    / wait protocol of the cross-card branch (one launch a rank), bitwise
+    the plain version over three epochs; a sender held back within the
+    wait limit is waited for."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from llzlab_tpu_torch.kernels import halo_ring as hr
+
+    rng = np.random.default_rng(45)
+    mesh = _time_mesh(4)
+    x = torch.from_numpy(
+        rng.standard_normal((24, 4 * 256)).astype(np.float32)).cuda()
+    parts = [x[:, r * 256:(r + 1) * 256] for r in range(4)]
+    carry = torch.from_numpy(
+        rng.standard_normal((24, h)).astype(np.float32)).cuda()
+    plain = hr.left_halo_ring_plain(parts, h, mesh, first_shard_value=carry)
+    n, cross = hr.left_halo_ring_cuda.launches, \
+        hr.left_halo_ring_cuda.cross_card_launches
+    for epoch in range(3):
+        if epoch == 2:
+            with mesh.on(0):
+                torch.cuda._sleep(int(2e8))  # rank 0 sends late
+        mesh.fork()
+        got = hr.left_halo_ring_cuda(parts, h, mesh, first_shard_value=carry,
+                                     _per_rank=True)
+        mesh.join()
+        hr.check_exchanges(mesh)
+        for a, b in zip(got, plain):
+            assert torch.equal(a, b)
+    assert hr.left_halo_ring_cuda.launches == n + 3 * 4
+    assert hr.left_halo_ring_cuda.cross_card_launches == cross  # one card
+
+
+@pytest.mark.cuda
+def test_halo_ring_protocol_receive_that_times_out_raises(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from llzlab_tpu_torch.kernels import halo_ring as hr
+
+    mesh = _time_mesh(2)
+    x = torch.randn((8, 512), device="cuda")
+    parts = [x[:, :256], x[:, 256:]]
+    hr.left_halo_ring_cuda(parts, 63, mesh, _per_rank=True)
+    hr.check_exchanges(mesh)
+    monkeypatch.setattr(hr, "WAIT_LIMIT_S", 0.1)
+    with mesh.on(0):
+        torch.cuda._sleep(int(2e9))  # about a second late
+    hr.left_halo_ring_cuda(parts, 63, mesh, _per_rank=True)
+    with pytest.raises(RuntimeError, match="never arrived"):
+        hr.check_exchanges(mesh)
+    got = hr.left_halo_ring_cuda(parts, 63, mesh, _per_rank=True)
+    hr.check_exchanges(mesh)  # and the exchange works again
+    assert torch.equal(got[1], parts[0][:, -63:])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["high", "highest"])
 @pytest.mark.parametrize("n", [2, 4])
 @pytest.mark.parametrize("ntaps,c", [(256, 8), (1024, 24), (1500, 5)])

@@ -4,7 +4,9 @@ collide) form one ``(1, 4)`` mesh, two ranks each
 (``runtime.distributed.global_dsp_mesh``); every exchange that crosses
 the process boundary (the halo, the state tail, the reshard, the IIR
 carry, the heartbeat) gives each rank what one process gives it on a
-4-rank CPU mesh, bit for bit.  Then the multi-process demo
+4-rank CPU mesh, bit for bit; so do two steps of the channelizer's
+``sharded_step`` (``halo="ppermute"``, frames local and ``a2a``), and
+each process gets the whole stream state back.  Then the multi-process demo
 (``scripts/multihost_fir_demo_torch.py``), clean and with a worker killed
 and the run resumed from its checkpoint.  Marked ``multihost``, not
 ``slow``: each process start costs seconds, not minutes.  The same two
@@ -32,10 +34,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 120
 
 
-def _env(pid: int, port: int) -> dict:
+def _env(pid: int, port: int, n_procs: int = 2) -> dict:
     env = dict(os.environ)
     env.update(JAX_COORDINATOR_ADDRESS=f"localhost:{port}",
-               JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(pid),
+               JAX_NUM_PROCESSES=str(n_procs), JAX_PROCESS_ID=str(pid),
                PYTHONPATH=REPO + os.pathsep + env.get("PYTHONPATH", ""))
     return env
 
@@ -46,12 +48,12 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _launch(out, device: str = "cpu"):
-    """The two worker processes on ``device`` ranks (a card each on
-    "cuda"); their output directory."""
+def _launch(out, device: str = "cpu", n_procs: int = 2):
+    """``n_procs`` worker processes (2 or 4) on ``device`` ranks (a card
+    each on "cuda"); their output directory."""
     port = _free_port()
     worker = os.path.join(REPO, "tests", "torch_dist_worker.py")
-    envs = [_env(pid, port) for pid in range(2)]
+    envs = [_env(pid, port, n_procs) for pid in range(n_procs)]
     if device == "cuda":
         for pid, env in enumerate(envs):
             env["CUDA_VISIBLE_DEVICES"] = str(pid)
@@ -65,7 +67,7 @@ def _launch(out, device: str = "cpu"):
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    assert [p.returncode for p in procs] == [0, 0], logs
+    assert [p.returncode for p in procs] == [0] * n_procs, logs
     return out
 
 
@@ -114,9 +116,51 @@ def _same_as_one_process(out, device):
                                           err_msg=name)
 
 
+def channelizer_same_as_one_process(out, devices, n_procs: int):
+    """Each step's spectra of the channelizer runs in ``out`` == those of
+    one process's 4-rank mesh on ``devices``, and the state every process
+    got back == that mesh's, bit for bit."""
+    import tests.torch_dist_worker as w
+
+    mesh = DspMesh(list(devices), (TIME_AXIS,))
+    want = w.channelizer_runs(mesh, lambda v: shard(torch.from_numpy(v),
+                                                    mesh))
+    mesh.join()
+    for name, (spec, st) in want.items():
+        for got, ref in zip(_blocks(out, name), spec):
+            np.testing.assert_array_equal(got, ref.cpu().numpy(),
+                                          err_msg=name)
+        for p in range(n_procs):
+            for k, v in enumerate(st):
+                got = np.load(os.path.join(out, f"{name}_state{k}_p{p}.npy"))
+                np.testing.assert_array_equal(
+                    got, v.cpu().numpy(), err_msg=f"{name} state {k} of "
+                                                  f"process {p}")
+
+
 @pytest.mark.multihost
 def test_exchanges_across_the_process_boundary_are_bitwise(two_process_run):
     _same_as_one_process(two_process_run, "cpu")
+
+
+@pytest.mark.multihost
+def test_channelizer_across_the_process_boundary_is_bitwise(two_process_run):
+    channelizer_same_as_one_process(two_process_run, ["cpu"] * 4, 2)
+
+
+def test_channelizer_kernel_halos_refuse_a_mesh_across_processes():
+    """``rdma`` / ``rdma_fused`` address the neighbour's buffer by pointer:
+    on a mesh whose ranks 2 and 3 live in another process they raise,
+    naming CUDA IPC; ``ppermute`` builds."""
+    import tests.torch_dist_worker as w
+
+    mesh = DspMesh(["cpu"] * 4, (TIME_AXIS,), processes=[0, 0, 1, 1])
+    assert mesh.is_distributed and mesh.homes == [0, 2]
+    for method, halo_mode in (("fused", "rdma"), ("block2", "rdma"),
+                              ("block2", "rdma_fused")):
+        with pytest.raises(ValueError, match="CUDA IPC"):
+            w.channelizer(method, "cpu").sharded_step(mesh, halo=halo_mode)
+    w.channelizer("fused", "cpu").sharded_step(mesh)
 
 
 @pytest.mark.cuda
@@ -129,6 +173,7 @@ def test_exchanges_across_processes_over_nccl_are_bitwise(tmp_path):
                     "processes on one card)")
     out = _launch(tmp_path, "cuda")
     _same_as_one_process(out, "cuda")
+    channelizer_same_as_one_process(out, ["cuda"] * 4, 2)
     infos = [json.load(open(os.path.join(out, f"info_{p}.json")))
              for p in range(2)]
     assert [(i["clean"], i["nan"]) for i in infos] == [(True, False)] * 2

@@ -1,0 +1,137 @@
+"""How the port deals ranks onto several cards, on the CPU: plain device
+lists, no stream made.  ``parallel.mesh.deal_devices`` for 1 to 4 cards
+and the meshes of the multi-card runs; kernel B3's grouping of every dealt
+row by card (``ranks_by_card``) and its same-card edges; the channelizer
+tool's mesh against ``make_dsp_mesh``'s; the mesh's per-process first
+ranks; and the refusals of peer access that the halo kernels need between
+cards."""
+
+import pytest
+import torch
+
+from llzlab_tpu_torch.cli import channelizer as cz_cli
+from llzlab_tpu_torch.kernels import halo_ring as hr
+from llzlab_tpu_torch.parallel import mesh as pm
+from llzlab_tpu_torch.parallel.mesh import TIME_AXIS, DspMesh, deal_devices
+
+#: the (n_channel, n_time) meshes of the multi-card runs
+MESHES = ((1, 4), (2, 2), (4, 1), (1, 8))
+
+
+def _cards(devs):
+    return [d.index for d in devs]
+
+
+@pytest.mark.parametrize("count", [1, 2, 3, 4])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8])
+def test_deal_devices_one_rank_a_card_else_consecutive_runs(n, count):
+    cards = _cards(deal_devices(n, count))
+    assert len(cards) == n
+    assert all(d.type == "cuda" for d in deal_devices(n, count))
+    if n <= count:
+        assert cards == list(range(n))  # one rank a card, the first n
+    else:
+        assert sorted(set(cards)) == list(range(count))  # every card used
+        sizes = [cards.count(c) for c in range(count)]
+        assert max(sizes) - min(sizes) <= 1  # equal runs
+    assert cards == sorted(cards)  # a card's ranks are consecutive
+
+
+@pytest.mark.parametrize("count,want", [
+    (1, {(1, 4): [0, 0, 0, 0], (2, 2): [0, 0, 0, 0], (4, 1): [0, 0, 0, 0],
+         (1, 8): [0] * 8}),
+    (2, {(1, 4): [0, 0, 1, 1], (2, 2): [0, 0, 1, 1], (4, 1): [0, 0, 1, 1],
+         (1, 8): [0, 0, 0, 0, 1, 1, 1, 1]}),
+    (4, {(1, 4): [0, 1, 2, 3], (2, 2): [0, 1, 2, 3], (4, 1): [0, 1, 2, 3],
+         (1, 8): [0, 0, 1, 1, 2, 2, 3, 3]}),
+])
+def test_deal_devices_on_the_multicard_meshes(count, want):
+    for (nc, nt), cards in want.items():
+        assert _cards(deal_devices(nc * nt, count)) == cards
+
+
+@pytest.mark.parametrize("count", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", MESHES)
+def test_ranks_by_card_takes_every_dealt_row(shape, count):
+    nc, nt = shape
+    devs = deal_devices(nc * nt, count)
+    for c in range(nc):
+        row = devs[c * nt:(c + 1) * nt]
+        groups = hr.ranks_by_card(row)
+        assert [r for g in groups for r in g] == list(range(nt))
+        assert all(len({row[r] for r in g}) == 1 for g in groups)
+        edges = hr.same_card_edges(row)
+        assert edges == [row[r - 1] == row[r] for r in range(1, nt)]
+        # B3 runs the send / wait protocol on as many edges as the row
+        # has cards, less one
+        assert edges.count(False) == len(groups) - 1
+
+
+@pytest.mark.parametrize("layout,edges", [
+    ([0, 0, 1, 1], [True, False, True]),
+    ([0, 1, 2, 3], [False, False, False]),
+    ([0, 0, 0, 0, 1, 1, 1, 1], [True, True, True, False, True, True, True]),
+])
+def test_same_card_edges_of_the_b3_layouts(layout, edges):
+    devs = [torch.device("cuda", i) for i in layout]
+    assert hr.same_card_edges(devs) == edges
+    assert [len(g) for g in hr.ranks_by_card(devs)] == \
+        [layout.count(i) for i in sorted(set(layout))]
+
+
+def test_ranks_by_card_refuses_a_card_that_comes_back():
+    devs = [torch.device("cuda", i) for i in (0, 1, 0)]
+    with pytest.raises(ValueError, match="consecutive"):
+        hr.ranks_by_card(devs)
+
+
+@pytest.mark.parametrize("count", [1, 2, 3, 4])
+@pytest.mark.parametrize("opts", [(None, None), (2, None), (None, 4),
+                                  (2, 2), (4, 1), (1, 8)])
+def test_the_tool_mesh_is_make_dsp_mesh(opts, count, monkeypatch):
+    """The tool's default mesh is one rank a card; whatever its options,
+    its ranks are those ``make_dsp_mesh`` deals for its shape."""
+    seen = []
+    monkeypatch.setattr(pm, "require_cuda", lambda: torch.device("cuda", 0))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    monkeypatch.setattr(pm, "DspMesh", lambda devs, axes, shape: seen.append(
+        (list(devs), shape)))
+    nc, nt = cz_cli.mesh_shape(*opts, count)
+    if opts == (None, None):
+        assert (nc, nt) == (1, count)
+    pm.make_dsp_mesh(nc, nt)
+    assert seen == [(deal_devices(nc * nt, count), (nc, nt))]
+
+
+def test_homes_of_a_mesh_are_each_process_first_rank():
+    assert DspMesh(["cpu"] * 4, (TIME_AXIS,)).homes == [0]
+    mesh = DspMesh(["cpu"] * 4, (TIME_AXIS,), processes=[0, 0, 1, 1])
+    assert mesh.homes == [0, 2] and mesh.home == 0
+    mesh = DspMesh(["cpu"] * 4, (TIME_AXIS,), processes=[0, 1, 2, 3])
+    assert mesh.homes == [0, 1, 2, 3]
+
+
+def test_fork_join_synchronize_on_a_cpu_mesh_do_nothing():
+    mesh = DspMesh(["cpu"] * 4, (TIME_AXIS,))
+    mesh.fork()
+    mesh.join()
+    mesh.synchronize()
+
+
+def test_a_pair_of_cards_without_peer_access_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
+                        lambda a, b: not (a == 1 and b == 0))
+    with pytest.raises(RuntimeError, match="no peer access from cuda:1"):
+        hr.enable_peer_access(torch.device("cuda", 0),
+                              torch.device("cuda", 1))
+
+
+@pytest.mark.parametrize("var", ["PYTORCH_CUDA_ALLOC_CONF",
+                                 "PYTORCH_ALLOC_CONF"])
+def test_peer_access_refuses_expandable_segments(var, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
+                        lambda a, b: True)
+    monkeypatch.setenv(var, "max_split_size_mb:64, expandable_segments:True")
+    with pytest.raises(RuntimeError, match="expandable_segments"):
+        hr.enable_peer_access(torch.device("cuda", 0),
+                              torch.device("cuda", 1))
