@@ -127,13 +127,26 @@ checks them:
    the path meets it), the CUDA-event ms of the sharded call and of its
    unsharded counterpart, ``collective_traffic``'s bytes equal to the
    analytic model, and for ``halo_overlap`` and the pipeline the
-   profiler's device time summed over streams against the event time.
+   profiler's device time summed over streams against the event time;
+11. several cards (``multicard_paths``): on one card B3's protocol with
+   each rank launched alone; on two or more config 5 over 1-D meshes of
+   2 and 4 cards and (2, 2) / (4, 1), every mode bitwise the same ranks
+   on one card (``--only-multicard`` runs phases 1 and 11 alone);
+12. across processes (``process_paths``, workers of
+   ``scripts/halo_ipc_worker_torch.py``): B3 and B4 between two processes
+   of one card through CUDA IPC, bitwise the same ranks in one process;
+   with two or more cards config 5's ``rdma`` / ``rdma_fused`` steps on 2
+   and 4 processes a card, bitwise one process's mesh over the same
+   cards, and the tap-parallel FIR on 2 (``--only-processes`` runs phases
+   1 and 12 alone).
 
 Every phase raises on failure.  The last line of stdout is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
 A kernel's ``launches`` there sums the main paths it runs on, each counted
 from 0 over one run (B2: the channelizer at ``high``, config 1 in each
-mode and the ``fir`` tool); ``launches_by_path`` gives each count.
+mode and the ``fir`` tool); ``launches_by_path`` gives each count (a
+path of phase 12 sums its worker processes'), and B3 and B4 carry
+``ms_across_processes``.
 Needs one CUDA GPU; exits non-zero, printing no result, without one.
 
     python3 chip_smoke.py
@@ -588,6 +601,143 @@ def multicard_paths(dev, smi, wrappers):
     del spec, ref, xt
     torch.cuda.empty_cache()
     return by_path, across_ms
+
+
+def process_paths(dev, smi, wrappers):
+    """Phase 12: kernels B3 and B4 between processes, through CUDA IPC
+    (``scripts/halo_ipc_worker_torch.py`` starts the workers).  Always:
+    two processes on ``dev`` over gloo, the mesh ``[P0, P0, P1, P1]``, B3
+    at config 5's ``(1024, 2048)`` tails over three epochs with a carry and
+    B4 at 256 x 327 680 a rank at both precisions, each process bitwise
+    the same ranks in one process and the plain version (B4 at the kernel
+    floors), no error word set.  With two or more cards: config 5 at full
+    width on 2 and 4 processes a card over NCCL, fused ``rdma``, block2
+    ``rdma`` and block2 ``rdma_fused`` at 256 channels, two super-blocks
+    and each process's state bitwise the same steps on one process's mesh
+    over the same cards, traffic equal to ``comm_bytes(..., procs=n)``,
+    the steps timed beside ``ppermute``; B3 and B4 timed; config 1 through
+    ``fir_filter_tap_parallel`` on 2 processes, bitwise.  Returns
+    ``({kernel: {path: launches}}, {kernel: {what: ms}})``.  Raises on any
+    failure."""
+    import tempfile
+
+    import torch
+
+    from llzlab_tpu_torch import Channelizer
+    from llzlab_tpu_torch.kernels import halo_ring as hr
+    from llzlab_tpu_torch.parallel.mesh import (TIME_AXIS, DspMesh,
+                                                make_dsp_mesh)
+    from llzlab_tpu_torch.parallel.tap_tp import fir_filter_tap_parallel
+    from scripts import halo_ipc_worker_torch as hw
+
+    by_path = {name: {} for name in wrappers}
+    across = {"halo_ring": {}, "halo_fir_fused": {}}
+    count = torch.cuda.device_count()
+
+    def fail(msg):
+        raise RuntimeError(f"phase 12 {msg}")
+
+    def launches(results, expect):
+        """Sum each path's launches over the processes; each kernel of
+        ``expect(path)`` launched, across processes too, and no other."""
+        for path in results[0]["paths"]:
+            got = {k: [sum(r["paths"][path][k][i] for r in results)
+                       for i in (0, 1)] for k in results[0]["paths"][path]}
+            want = expect(path)
+            if any((k in want) != (n > 0 and x > 0)
+                   for k, (n, x) in got.items()):
+                fail(f"{path}: launches, across processes {got}, expected "
+                     f"nonzero exactly on {sorted(want)}")
+            for k, (n, _) in got.items():
+                if n:
+                    by_path[k][f"phase12 {path}"] = n
+            log(f"[phase12] {path}: launches (all, across processes) "
+                f"{got}")
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = hw.launch("card", 2, os.path.join(tmp, "card"))
+    launches(res, lambda path: {"halo_ring"} if path.startswith("B3")
+             else {"halo_fir_fused"})
+    r0 = res[0]
+    log(f"[phase12] two processes on {dev} (gloo for the handshake, the "
+        f"mesh [P0, P0, P1, P1]): B3 (1024, 2048) over 3 epochs with a "
+        f"carry and B4 256 x 327 680 a rank at highest / high, each "
+        f"process == the same ranks in one process bitwise, B3 == plain "
+        f"bitwise, B4 against plain float64 "
+        f"{min(r['b4_snr_db']['highest'] for r in res):.1f} / "
+        f"{min(r['b4_snr_db']['high'] for r in res):.1f} dB, no error word")
+    log(f"[time] phase12 two processes of one card (time-sliced, not a "
+        f"speed): B3 {r0['b3_ms']:.3f} ms an exchange (the same ranks in "
+        f"one process {r0['b3_one_process_ms']:.3f}); B4 highest / high "
+        f"{r0['b4_ms']['highest']:.3f} / {r0['b4_ms']['high']:.3f} ms "
+        f"({r0['b4_one_process_ms']['highest']:.3f} / "
+        f"{r0['b4_one_process_ms']['high']:.3f}); on {smi}")
+    across["halo_ring"]["2 processes of one card"] = r0["b3_ms"]
+    across["halo_fir_fused"]["2 processes of one card"] = \
+        r0["b4_ms"]["highest"]
+    if count < 2:
+        log(f"[phase12] one card visible ({count}): a process a card needs "
+            f"two or more")
+        return by_path, across
+
+    for n in (2, 4):
+        if n > count:
+            log(f"[phase12] {n} processes a card: {count} cards, skipped")
+            continue
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            res = hw.launch("cards", n, os.path.join(tmp, "cards"))
+        launches(res, lambda path: {"halo_ring"} if " rdma " in path
+                 else {"halo_ring", "halo_fir_fused"} if "rdma_fused" in
+                 path else set())
+        cards = [torch.device("cuda", i) for i in range(n)]
+        mesh = DspMesh(cards, (TIME_AXIS,))
+        with matmul_precision("highest"):
+            for method, halo, channels in hw.CZ_PATHS:
+                path = (f"config 5 {method} {halo} {channels}ch 1x{n} "
+                        f"processes")
+                want = hw.cz_steps(Channelizer(fir_method=method, device=dev),
+                                   mesh, channels, hw.CZ_T_LOC, halo)
+                hr.check_exchanges(mesh)
+                for r in res:
+                    for k, v in r["digests"][path].items():
+                        if want[k] != v:
+                            fail(f"{path}: process {r['process']} {k} != "
+                                 f"the same steps of one process's mesh "
+                                 f"over {n} cards")
+                    moved, model = r["traffic"][path]
+                    if moved != model:
+                        fail(f"{path}: traffic {moved} B != model {model} B")
+                torch.cuda.empty_cache()
+                log(f"[phase12] {path}: 2 super-blocks of {channels} x "
+                    f"{hw.CZ_T_LOC} a rank and each process's state == the "
+                    f"same steps of one process over {n} cards bitwise; "
+                    f"traffic {res[0]['traffic'][path][0]} B == model")
+            if n == 2:
+                xs, taps = hw.tap_inputs()
+                path = f"config 1 fir_filter_tap_parallel 1x{n} processes"
+                want = fir_filter_tap_parallel(
+                    torch.from_numpy(xs), taps,
+                    make_dsp_mesh(1, n, devices=cards))
+                for r in res:
+                    for k, v in r["digests"][path].items():
+                        if hw.digest(want[int(k[4:])]) != v:
+                            fail(f"{path}: process {r['process']} {k} != "
+                                 f"one process's mesh over {n} cards")
+                log(f"[phase12] {path}: each rank's replica == one "
+                    f"process's mesh over {n} cards bitwise")
+        r0 = res[0]
+        steps = ", ".join(f"{p.split(' 1x')[0][9:]} {ms:.3f}"
+                          for p, ms in r0["step_ms"].items())
+        log(f"[time] phase12 config 5 a step, {n} processes a card "
+            f"(1 x {n}, {hw.CZ_T_LOC} a rank; the slowest process's CUDA "
+            f"events): {steps} ms; B3 (1024, 2048) {r0['b3_ms']:.3f} ms, B4 "
+            f"highest 256 x {hw.CZ_T_LOC} a rank {r0['b4_ms']:.3f} ms; on "
+            f"{smi}")
+        across["halo_ring"][f"{n} processes a card"] = r0["b3_ms"]
+        across["halo_fir_fused"][f"{n} processes a card"] = r0["b4_ms"]
+    return by_path, across
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -2274,6 +2424,18 @@ def main() -> int:
         f"{hf.blocks_per_sm(NTAPS, 'high')}, highest "
         f"{hf.blocks_per_sm(NTAPS, 'highest')}")
 
+    if "--only-processes" in sys.argv[1:]:
+        # phase 12 alone, without the kernels line of a whole run
+        t0 = time.perf_counter()
+        by_path, across = process_paths(dev, smi, wrappers)
+        log(f"[phase12] all paths in {time.perf_counter() - t0:.1f} s; "
+            f"launches by path {json.dumps(by_path)}; across processes "
+            f"{json.dumps(across)}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
     if "--only-multicard" in sys.argv[1:]:
         # phase 11 alone (a rehearsal on several cards), without the
         # kernels line of a whole run
@@ -2949,6 +3111,13 @@ def main() -> int:
         by_path[name].update(paths)
         launches[name] += sum(paths.values())
     log(f"[phase11] all paths in {time.perf_counter() - t0:.1f} s")
+    # ---- phase 12: across processes, through CUDA IPC ---------------------
+    t0 = time.perf_counter()
+    paths12, across12 = process_paths(dev, smi, wrappers)
+    for name, paths in paths12.items():
+        by_path[name].update(paths)
+        launches[name] += sum(paths.values())
+    log(f"[phase12] all paths in {time.perf_counter() - t0:.1f} s")
     log(f"[memory] peak device memory allocated in this run: "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
 
@@ -2975,6 +3144,10 @@ def main() -> int:
         if name in across:  # phase 11, one rank a card
             entry["ms_across_cards"] = across[name]["ms"]
             entry["cards_across"] = across[name]["cards"]
+        if name in across12:  # phase 12, two processes of one card first
+            entry["ms_across_processes"] = across12[name][
+                "2 processes of one card"]
+            entry["ms_across_processes_by_layout"] = across12[name]
         if (name, "high") in times:
             entry["ms_high"], entry["plain_ms_high"] = \
                 times[(name, "high")][:2]

@@ -14,9 +14,10 @@ matrix product (``"block2"``), then ``torch.fft``.
 One process drives every rank it holds (``parallel/mesh.py``), so the
 sharded step takes and returns one tensor per rank where the JAX package
 passes one sharded array through ``shard_map``.  The ranks may sit on
-several cards, and with ``halo="ppermute"`` in several processes
+several cards and in several processes
 (``runtime.distributed.global_dsp_mesh``, as the JAX package's step runs
-under ``jax.distributed``): each process then passes and gets back the
+under ``jax.distributed``), with every halo mode (the kernel halos across
+the processes of one host): each process then passes and gets back the
 whole stream state on its first rank (``DspMesh.home``).
 """
 
@@ -238,8 +239,8 @@ class Channelizer:
         spec=CHANNEL_MAJOR)``).  ``state``: the pair of :meth:`init_state`
         for all ``C`` channels, on rank 0's device; each channel row takes
         its rows, and the state returned holds each row's last rank's
-        tail, copied to rank 0.  On a mesh across processes (``ppermute``
-        only) each process passes the state on its own first rank
+        tail, copied to rank 0.  On a mesh across processes each process
+        passes the state on its own first rank
         (``mesh.home``), the ranks of other processes are None in
         ``parts`` and ``spec_parts``, and each row's last rank sends its
         tail to every process's first rank, so that every process gets
@@ -263,9 +264,11 @@ class Channelizer:
         kernel, which computes every output that needs no halo while the
         tail travels; needs ``fir_method="block2"``; the resampler's halo
         still goes through B3).  The kernels need a 1-D ``(time,)`` mesh
-        of this process's ranks, on one card or several (peer access
-        between them); across processes they raise, since they address
-        the neighbour's buffer by pointer.  On a CPU mesh their plain
+        (``mesh.row(0)`` of a global ``(1, n)`` mesh), on one card or
+        several (peer access between them), in one process or in several
+        of one host (through CUDA IPC; an edge between hosts raises).
+        Across processes every process must call the step the same number
+        of times (``kernels/halo_ring.py``).  On a CPU mesh their plain
         versions run.
 
         ``halo_overlap``: the linear stages split as ``f(halo, x) = f(0,
@@ -290,13 +293,6 @@ class Channelizer:
                              f"({CHANNEL_AXIS!r}, {TIME_AXIS!r}) mesh, got "
                              f"{axes}")
         if halo in ("rdma", "rdma_fused"):
-            if mesh.is_distributed:
-                raise ValueError(
-                    f"halo={halo!r} needs a 1-D (time,) mesh of this "
-                    "process's ranks: the halo kernels store into the "
-                    "neighbour's receive buffer and flag by pointer, and "
-                    "another process's buffers would need CUDA IPC; use "
-                    "halo='ppermute' across processes")
             if axes != (TIME_AXIS,):
                 raise ValueError(
                     f"halo={halo!r} needs a 1-D (time,) mesh: the halo "
@@ -471,7 +467,7 @@ class Channelizer:
             previous = list(issued)
             if kernels_exchange:
                 issued[:] = [rank.stream.record_event()
-                             for rank in mesh.ranks]
+                             for rank in mesh.ranks if not rank.remote]
             mesh.join()
             if previous:
                 # with this call's work queued, so that the card stays

@@ -1,14 +1,15 @@
 // Halo exchange between time shards from inside a kernel: the protocol of
 // kernel B4 (halo_fir_fused.cu) on every edge and of kernel B3
-// (halo_ring.cu) on an edge between two cards (within a card B3 copies the
-// tails directly and needs none of this).
+// (halo_ring.cu) on an edge between two cards or two processes (within a
+// card of one process B3 copies the tails directly and needs none of this).
 //
 // A shard's kernel copies the last h samples of each of its rows into its
 // right neighbour's receive buffer, then publishes a rising epoch in the
 // neighbour's flag; the neighbour's kernel waits until its flag shows the
 // epoch and then reads the buffer.  Buffer and flag are plain pointers under
 // CUDA's unified addressing: memory of the same card (each shard a stream of
-// its own) or of a peer card with peer access enabled.  So every step of the
+// its own), of a peer card with peer access enabled, or of another process,
+// opened through CUDA IPC (on its card or a peer).  So every step of the
 // hand-over is at system scope: the data stores are fenced with
 // __threadfence_system(), the flag is written with st.release.sys and read
 // with ld.acquire.sys, and received data is loaded past L1 (ld.global.cg),
@@ -18,6 +19,19 @@
 // epoch into an error word (pinned host memory, so the host reads it
 // without a copy) and goes on with whatever the buffer holds; the wrapper
 // raises on a nonzero word.  A hang becomes an error, never a hung card.
+//
+// Back-pressure.  The send of epoch e + 1 must not land on a buffer that the
+// receiver still reads for epoch e.  Within one process a stream event
+// orders the sending launch behind the receiving one (the wrapper's).  An
+// event cannot order a stream of another process, so between processes
+// (buffer and flag opened through CUDA IPC) the receiver acknowledges: once
+// every block that reads the buffer has loaded it, the last one in fences
+// and publishes the epoch with st.release.sys into an ack word that lives in
+// the sender's memory, and the sending blocks wait, with ld.acquire.sys and
+// the same time limit, until the ack has reached e - 1 before they store
+// (zeroed, so epoch 1 passes at once).  A send whose ack never comes writes
+// -epoch into its error word.  This is the port's form of the TPU kernel's
+// send / receive semaphores.
 
 #pragma once
 
@@ -72,15 +86,40 @@ __device__ __forceinline__ void halo_copy_row(float* dst, const float* src,
   for (int i = head + 4 * nv + tid; i < n; i += nthr) dst[i] = __ldcg(src + i);
 }
 
+// Thread 0 of the block spins until *word >= target, then the block is
+// released through __syncthreads().  Past limit_ns `code` goes into *err and
+// the block goes on.  Every thread of the block must call this.
+__device__ __forceinline__ void halo_wait_for(const int* word, int target,
+                                              long long limit_ns, int* err,
+                                              int code) {
+  if (threadIdx.x == 0) {
+    const unsigned long long t0 = halo_now_ns();
+    while (halo_flag_load(word) < target) {
+      if (halo_now_ns() - t0 > (unsigned long long)limit_ns) {
+        *reinterpret_cast<volatile int*>(err) = code;
+        __threadfence_system();
+        break;
+      }
+      __nanosleep(200);
+    }
+  }
+  __syncthreads();
+}
+
 // Send: blocks part = 0 .. nparts-1 of the launch each copy their share of the
 // c row tails (x + row*stride + t - h, h floats) into the neighbour's (c, h)
 // buffer.  Each block fences its stores and counts itself in; the last one in
-// resets the counter for the next launch and publishes the epoch.  Every
+// resets the counter for the next launch and publishes the epoch.  ack
+// non-null (a neighbour in another process): each block first waits until the
+// receiver has acknowledged epoch - 1 (err: the sender's error word).  Every
 // thread of a sending block must call this (it holds a __syncthreads()).
 __device__ __forceinline__ void halo_send(const float* x, long long stride,
                                           int t, int c, int h, float* nbr_buf,
                                           int* nbr_flag, int* counter,
-                                          int epoch, int part, int nparts) {
+                                          int epoch, int part, int nparts,
+                                          const int* ack, long long limit_ns,
+                                          int* err) {
+  if (ack != nullptr) halo_wait_for(ack, epoch - 1, limit_ns, err, -epoch);
   for (int row = part; row < c; row += nparts)
     halo_copy_row(nbr_buf + (size_t)row * h, x + (size_t)row * stride + (t - h),
                   h, threadIdx.x, blockDim.x);
@@ -100,16 +139,24 @@ __device__ __forceinline__ void halo_send(const float* x, long long stride,
 // block goes on.  Every thread of the block must call this.
 __device__ __forceinline__ void halo_wait(const int* flag, int epoch,
                                           long long limit_ns, int* err) {
+  halo_wait_for(flag, epoch, limit_ns, err, epoch);
+}
+
+// Acknowledge: called by every thread of each of the nreaders blocks that
+// read the receive buffer, after the block's last load from it.  The loads
+// of the block's threads are behind the barrier; thread 0 fences at system
+// scope and counts the block in (rcount: one zeroed int of this shard); the
+// last block in resets the count for the next launch, fences again and
+// publishes the epoch in the sender's ack word.
+__device__ __forceinline__ void halo_ack(int* ack, int* rcount, int epoch,
+                                         int nreaders) {
+  __syncthreads();
   if (threadIdx.x == 0) {
-    const unsigned long long t0 = halo_now_ns();
-    while (halo_flag_load(flag) < epoch) {
-      if (halo_now_ns() - t0 > (unsigned long long)limit_ns) {
-        *reinterpret_cast<volatile int*>(err) = epoch;
-        __threadfence_system();
-        break;
-      }
-      __nanosleep(200);
+    __threadfence_system();
+    if (atomicAdd(rcount, 1) == nreaders - 1) {
+      *rcount = 0;
+      __threadfence_system();
+      halo_flag_store(ack, epoch);
     }
   }
-  __syncthreads();
 }

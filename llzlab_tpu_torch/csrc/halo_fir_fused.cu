@@ -53,7 +53,13 @@
 // an H100 80GB HBM3 (132 SMs) with 1024 taps: 4 blocks an SM at "high" (54
 // KB of shared memory, 64 registers a thread; 528 blocks), 8 at "highest"
 // (12 KB, 32 registers; 1056 blocks).
-// A wait still has its time limit and error word.
+// A wait still has its time limit and error word.  A neighbour in another
+// process (buffers opened through CUDA IPC) adds the acknowledgement of
+// halo_exchange.cuh: the senders wait for the ack of the previous epoch
+// before they store, and the waiters, once they have read the halo,
+// acknowledge it.  Two processes on one card do not run kernels at the same
+// time (their contexts are time-sliced without MPS): a spinning waiter moves
+// on when the card switches to the sender's context.
 //
 // The tile arithmetic is kernel B2's: at "highest" fir_tile.cuh's four
 // outputs per thread, 32-tap chunks in tap order, where an output's sum
@@ -182,7 +188,8 @@ halo_fir_fused_kernel(const float* __restrict__ x,
                       const __nv_bfloat16* __restrict__ taps_lo,
                       float* __restrict__ y, int c, int t, int ntaps, int ntp,
                       int h, float* nbr_buf, int* nbr_flag, const float* left,
-                      const int* my_flag, int* counter, int* err, int epoch,
+                      const int* my_flag, int* counter, const int* nbr_ack,
+                      int* my_ack, int* my_rcount, int* err, int epoch,
                       long long limit_ns, TilePlan plan) {
   extern __shared__ float4 smem4[];
   // "highest": [ntp] taps, [WRUN + ntp] x window, floats
@@ -202,7 +209,7 @@ halo_fir_fused_kernel(const float* __restrict__ x,
     fir_stage_taps(th, taps_f32, ntaps, ntp, threadIdx.x, THREADS);
   if (nbr_buf != nullptr && lin < plan.nsend)
     halo_send(x, t, t, c, h, nbr_buf, nbr_flag, counter, epoch, lin,
-              plan.nsend);
+              plan.nsend, nbr_ack, limit_ns, err);
 
   if (lin < plan.n_int_blocks) {
     for (int q = lin; q < plan.n_interior; q += plan.n_int_blocks) {
@@ -230,6 +237,9 @@ halo_fir_fused_kernel(const float* __restrict__ x,
       fir_tile_from_halo(x, left, y, xw, th, b, n0, t, h, ntp);
     __syncthreads();
   }
+  // every waiter has read its share of the buffer: acknowledge it to a
+  // sender in another process
+  if (my_ack != nullptr) halo_ack(my_ack, my_rcount, epoch, plan.nwait);
 }
 
 // Shared memory of a block, the blocks of it that one SM of the current card
@@ -278,7 +288,10 @@ extern "C" int halo_fir_fused_blocks_per_sm(int ntaps, int high) {
 // null on the last shard.  left: this shard's own receive buffer, with
 // my_flag its flag; on shard 0 my_flag is null and left is the (c, h) carry
 // (null: zeros).  counter: one zeroed int of this shard; err: its error
-// word.  Returns cudaGetLastError() after the launch, or the error that kept
+// word.  nbr_ack: where the right neighbour lives in another process, this
+// shard's ack word, which the send waits on (null: none); my_ack / my_rcount:
+// where the left neighbour does, its ack word (opened through CUDA IPC) and
+// one zeroed int of this shard, which the waiters acknowledge into.  Returns cudaGetLastError() after the launch, or the error that kept
 // it from launching: shared memory above 227 KB (cudaErrorInvalidValue), or
 // a card that holds too few blocks for its waiters never to keep a sender
 // off it (cudaErrorLaunchOutOfResources).
@@ -286,7 +299,8 @@ extern "C" int halo_fir_fused_launch(
     const float* x, const void* taps_a, const void* taps_b, float* y, int c,
     int t, int block, int ntaps, int high, int h, float* nbr_buf,
     int* nbr_flag, const float* left, const int* my_flag, int* counter,
-    int* err, int epoch, long long limit_ns, void* stream) {
+    const int* nbr_ack, int* my_ack, int* my_rcount, int* err, int epoch,
+    long long limit_ns, void* stream) {
   if (c <= 0 || t <= 0) return (int)cudaSuccess;
   size_t smem = 0;
   int ntp = 0, per_sm = 0, sms = 0;
@@ -301,11 +315,12 @@ extern "C" int halo_fir_fused_launch(
     halo_fir_fused_kernel<true><<<plan.grid, THREADS, smem, s>>>(
         x, nullptr, (const __nv_bfloat16*)taps_a,
         (const __nv_bfloat16*)taps_b, y, c, t, ntaps, ntp, h, nbr_buf,
-        nbr_flag, left, my_flag, counter, err, epoch, limit_ns, plan);
+        nbr_flag, left, my_flag, counter, nbr_ack, my_ack, my_rcount, err,
+        epoch, limit_ns, plan);
   else
     halo_fir_fused_kernel<false><<<plan.grid, THREADS, smem, s>>>(
         x, (const float*)taps_a, nullptr, nullptr, y, c, t, ntaps, ntp, h,
-        nbr_buf, nbr_flag, left, my_flag, counter, err, epoch, limit_ns,
-        plan);
+        nbr_buf, nbr_flag, left, my_flag, counter, nbr_ack, my_ack,
+        my_rcount, err, epoch, limit_ns, plan);
   return (int)cudaGetLastError();
 }

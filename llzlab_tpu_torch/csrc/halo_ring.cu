@@ -26,25 +26,35 @@
 //                    each shard of one card alone, on its own stream, so
 //                    that every edge takes this branch (a check of the
 //                    protocol on a machine with one card).
+//   cross-process    the same protocol, with the receive buffer and flag of
+//                    the other process's shard opened through CUDA IPC
+//                    (halo_ipc_* below) and the receiver's acknowledgement
+//                    (halo_ack) in place of the stream event that orders the
+//                    next send within a process.
 //
 // The send precedes the wait in every block, so a card that holds a single
 // shard (whose blocks do both) cannot wait for a sender queued behind it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "halo_exchange.cuh"
 
 // How one shard gets its halo.  src: h floats per row, rows src_stride
 // apart (the left neighbour's tails, the carry, or this shard's receive
-// buffer); null: zeros.  flag: non-null on a cross-card edge, where the
-// copy waits for the epoch; err: this shard's error word.
+// buffer); null: zeros.  flag: non-null on a protocol edge, where the copy
+// waits for the epoch; err: this shard's error word.  ack / rcount: non-null
+// on an edge from another process, where the copy is acknowledged into the
+// sender's ack word, counted in rcount (one zeroed int of this shard).
 struct HaloRank {
   const float* src;
   long long src_stride;
   float* out;  // (c, h) contiguous
   const int* flag;
   int* err;
+  int* ack;
+  int* rcount;
 };
 
 namespace {
@@ -60,11 +70,12 @@ struct HaloTable {
 __global__ void __launch_bounds__(THREADS)
 halo_ring_kernel(HaloTable tab, int c, int h, const float* send_x,
                  long long send_stride, int send_t, float* nbr_buf,
-                 int* nbr_flag, int* counter, int epoch, long long limit_ns) {
+                 int* nbr_flag, int* counter, const int* send_ack,
+                 int* send_err, int epoch, long long limit_ns) {
   const int part = blockIdx.x, nparts = gridDim.x;
   if (nbr_buf != nullptr && blockIdx.y == gridDim.y - 1)
     halo_send(send_x, send_stride, send_t, c, h, nbr_buf, nbr_flag, counter,
-              epoch, part, nparts);
+              epoch, part, nparts, send_ack, limit_ns, send_err);
   const HaloRank me = tab.r[blockIdx.y];
   if (me.flag != nullptr) halo_wait(me.flag, epoch, limit_ns, me.err);
   if (me.src != nullptr) {
@@ -72,6 +83,7 @@ halo_ring_kernel(HaloTable tab, int c, int h, const float* send_x,
       halo_copy_row(me.out + (size_t)row * h,
                     me.src + (size_t)row * me.src_stride, h, threadIdx.x,
                     THREADS);
+    if (me.ack != nullptr) halo_ack(me.ack, me.rcount, epoch, nparts);
   } else {
     for (int row = part; row < c; row += nparts)
       for (int i = threadIdx.x; i < h; i += THREADS)
@@ -84,13 +96,17 @@ halo_ring_kernel(HaloTable tab, int c, int h, const float* send_x,
 // One launch for n (<= 16) consecutive shards of one card.  ranks: n
 // HaloRank entries in host memory.  send_x / send_stride / send_t: the (c,
 // send_t) block of the launch's last shard, sent to nbr_buf / nbr_flag (the
-// next card's (c, h) receive buffer and flag) with `counter` (one zeroed int
-// of that shard); nbr_buf null: nothing is sent.  Returns cudaGetLastError()
-// after the launch, cudaErrorInvalidValue for n outside 1 .. 16.
+// next shard's (c, h) receive buffer and flag, on another card or in another
+// process) with `counter` (one zeroed int of that shard); nbr_buf null:
+// nothing is sent.  send_ack: the sender's ack word where the next shard
+// lives in another process (null: none), send_err the sending shard's error
+// word.  Returns cudaGetLastError() after the launch, cudaErrorInvalidValue
+// for n outside 1 .. 16.
 extern "C" int halo_ring_launch(const HaloRank* ranks, int n, int c, int h,
                                 const float* send_x, long long send_stride,
                                 int send_t, float* nbr_buf, int* nbr_flag,
-                                int* counter, int epoch, long long limit_ns,
+                                int* counter, const int* send_ack,
+                                int* send_err, int epoch, long long limit_ns,
                                 void* stream) {
   if (c <= 0 || h <= 0 || n == 0) return (int)cudaSuccess;
   if (n < 0 || n > MAX_RANKS) return (int)cudaErrorInvalidValue;
@@ -99,7 +115,7 @@ extern "C" int halo_ring_launch(const HaloRank* ranks, int n, int c, int h,
   const dim3 grid(c < MAX_BLOCKS ? c : MAX_BLOCKS, n);
   halo_ring_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       tab, c, h, send_x, send_stride, send_t, nbr_buf, nbr_flag, counter,
-      epoch, limit_ns);
+      send_ack, send_err, epoch, limit_ns);
   return (int)cudaGetLastError();
 }
 
@@ -125,4 +141,66 @@ extern "C" int halo_enable_peer_access(int dev, int peer) {
   const cudaError_t back = cudaSetDevice(prev);
   if (e != cudaSuccess) return (int)e;
   return back != cudaSuccess ? (int)back : rc;
+}
+
+// Exchange state that another process reaches: memory of its own allocation
+// (a block of PyTorch's caching allocator cannot be exported alone:
+// cudaIpcGetMemHandle hands out the whole segment).  Each call makes `dev`
+// current and restores the caller's device; each returns 0 or the CUDA error
+// code.
+
+namespace {
+
+template <typename F>
+int on_device(int dev, F&& f) {
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaSetDevice(dev);
+  if (e == cudaSuccess) e = f();
+  const cudaError_t back = cudaSetDevice(prev);
+  if (e != cudaSuccess) return (int)e;
+  return (int)back;
+}
+
+}  // namespace
+
+// `bytes` of device memory of card `dev`, zeroed before this returns.
+extern "C" int halo_ipc_alloc(int dev, long long bytes, void** ptr) {
+  return on_device(dev, [&] {
+    cudaError_t e = cudaMalloc(ptr, (size_t)bytes);
+    if (e == cudaSuccess) e = cudaMemset(*ptr, 0, (size_t)bytes);
+    if (e == cudaSuccess) e = cudaDeviceSynchronize();
+    return e;
+  });
+}
+
+// The 64-byte IPC handle of an allocation of halo_ipc_alloc.
+static_assert(sizeof(cudaIpcMemHandle_t) == 64, "kernels/halo_ring.py");
+extern "C" int halo_ipc_export(int dev, void* ptr, unsigned char* handle) {
+  return on_device(dev, [&] {
+    cudaIpcMemHandle_t hd;
+    const cudaError_t e = cudaIpcGetMemHandle(&hd, ptr);
+    if (e == cudaSuccess) memcpy(handle, &hd, sizeof(hd));
+    return e;
+  });
+}
+
+// Open another process's allocation for kernels of card `dev` (the card of
+// the shard that stores into it), enabling peer access to its card if needed.
+extern "C" int halo_ipc_open(int dev, const unsigned char* handle,
+                             void** ptr) {
+  return on_device(dev, [&] {
+    cudaIpcMemHandle_t hd;
+    memcpy(&hd, handle, sizeof(hd));
+    return cudaIpcOpenMemHandle(ptr, hd, cudaIpcMemLazyEnablePeerAccess);
+  });
+}
+
+extern "C" int halo_ipc_close(int dev, void* ptr) {
+  return on_device(dev, [&] { return cudaIpcCloseMemHandle(ptr); });
+}
+
+extern "C" int halo_ipc_free(int dev, void* ptr) {
+  return on_device(dev, [&] { return cudaFree(ptr); });
 }

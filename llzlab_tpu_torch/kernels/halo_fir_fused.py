@@ -13,9 +13,13 @@ that needs no halo meanwhile, and computes y-block 0 once the halo has
 landed.
 
 * :func:`block2_fir_halo_fused` is the entry: a CUDA mesh launches the
-  kernel, once per rank in rank order on the rank's stream
+  kernel, once per rank of this process in rank order on the rank's stream
   (:func:`block2_fir_halo_fused_cuda`, which counts its launches in
   ``.launches``); a CPU mesh runs the plain version.  Nothing falls back.
+  The mesh's ranks may live in several processes of one host (None in the
+  list of parts for the ranks of other processes): an edge between two
+  processes runs B3's protocol through CUDA IPC, with the receiver's
+  acknowledgement (``kernels/halo_ring.py``).
 * :func:`block2_fir_halo_fused_plain` is the plain PyTorch version:
   ``left_halo``, then ``block2_fir_plain`` on ``[zeros | halo | x_local]``.
 
@@ -49,7 +53,7 @@ from llzlab_tpu_torch.kernels.block2_fir import (MMA_PASS, MODES,
                                                  mma_smem_bytes, tap_tables)
 from llzlab_tpu_torch.ops.fir import block2_block
 from llzlab_tpu_torch.parallel.halo import left_halo
-from llzlab_tpu_torch.parallel.mesh import DspMesh, note_traffic
+from llzlab_tpu_torch.parallel.mesh import DspMesh, local_block, note_traffic
 
 __all__ = ["block2_fir_halo_fused", "block2_fir_halo_fused_cuda",
            "block2_fir_halo_fused_plain", "halo_fused_supports",
@@ -124,9 +128,11 @@ def _check(parts, taps, mesh, first_shard_value, mode):
     taps = np.asarray(taps, np.float64)
     ntaps = len(taps)
     block = block2_block(ntaps)
-    if parts[0].dim() != 2 or any(p.shape != parts[0].shape for p in parts):
+    ref = local_block(parts)
+    if ref.dim() != 2 or any(p is not None and p.shape != ref.shape
+                             for p in parts):
         raise ValueError("shards must be equal-shaped 2-D (C, T_loc) tensors")
-    b, t = parts[0].shape
+    b, t = ref.shape
     # history width: ntaps−1 at least; callers may carry a full block (the
     # block2 streaming state)
     h = (ntaps - 1 if first_shard_value is None
@@ -144,54 +150,60 @@ def _check(parts, taps, mesh, first_shard_value, mode):
     return taps, block, h
 
 
-def block2_fir_halo_fused_plain(parts: Sequence[torch.Tensor], taps,
-                                mesh: DspMesh, *,
+def block2_fir_halo_fused_plain(parts: Sequence[Optional[torch.Tensor]],
+                                taps, mesh: DspMesh, *,
                                 first_shard_value: Optional[torch.Tensor]
                                 = None, mode: str = "high"
-                                ) -> List[torch.Tensor]:
+                                ) -> List[Optional[torch.Tensor]]:
     """Plain PyTorch version of kernel B4: the halo by ``left_halo``, then
-    the plain block2 FIR of ``[zeros(block − h) | halo | x_local]``."""
+    the plain block2 FIR of ``[zeros(block − h) | halo | x_local]`` (None
+    for the ranks of other processes)."""
     taps, block, h = _check(parts, taps, mesh, first_shard_value, mode)
     halos = left_halo(parts, h, mesh, first_shard_value=first_shard_value)
-    out = []
-    for r, (part, halo) in enumerate(zip(parts, halos)):
-        with mesh.on(r):
-            xpad = torch.cat([F.pad(halo, (block - h, 0)), part], dim=-1)
-            out.append(block2_fir_plain(xpad, taps, block, mode))
-    return out
+    return mesh.map(lambda part, halo: block2_fir_plain(
+        torch.cat([F.pad(halo, (block - h, 0)), part], dim=-1), taps, block,
+        mode), parts, halos)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.halo_fir_fused_launch.argtypes = (
-        [p, p, p, p] + [i] * 6 + [p] * 6 + [i, ll, p])
+        [p, p, p, p] + [i] * 6 + [p] * 9 + [i, ll, p])
     lib.halo_fir_fused_launch.restype = i
     lib.halo_fir_fused_blocks_per_sm.argtypes = [i, i]
     lib.halo_fir_fused_blocks_per_sm.restype = i
 
 
+def library() -> ctypes.CDLL:
+    """The kernel's library, built from ``csrc/`` on first use."""
+    return _build.load("halo_fir_fused", _declare)
+
+
 def blocks_per_sm(ntaps: int, mode: str) -> int:
     """Blocks of the kernel that one SM of the current card holds (read
     from the CUDA occupancy API)."""
-    per_sm = _build.load(
-        "halo_fir_fused", _declare).halo_fir_fused_blocks_per_sm(
-            ntaps, int(mode == "high"))
+    per_sm = library().halo_fir_fused_blocks_per_sm(ntaps,
+                                                    int(mode == "high"))
     _build.check(-min(per_sm, 0), "halo_fir_fused_blocks_per_sm")
     return per_sm
 
 
-def block2_fir_halo_fused_cuda(parts: Sequence[torch.Tensor], taps,
-                               mesh: DspMesh, *,
+def block2_fir_halo_fused_cuda(parts: Sequence[Optional[torch.Tensor]],
+                               taps, mesh: DspMesh, *,
                                first_shard_value: Optional[torch.Tensor]
                                = None, mode: str = "high"
-                               ) -> List[torch.Tensor]:
-    """Launch kernel B4 once per rank, in rank order, each on its rank's
-    stream.  ``parts[r]``: contiguous ``(C, T_loc)`` f32 on rank ``r``'s
-    device.  ``.launches`` counts the launches, ``.cross_card_launches``
-    those with a neighbour on another card."""
+                               ) -> List[Optional[torch.Tensor]]:
+    """Launch kernel B4 once per rank of this process, in rank order, each
+    on its rank's stream.  ``parts[r]``: contiguous ``(C, T_loc)`` f32 on
+    rank ``r``'s device, None for a rank of another process (whose output
+    is None here).  ``.launches`` counts the launches,
+    ``.cross_card_launches`` those with a neighbour on another card of this
+    process, ``.cross_process_launches`` in another process."""
     taps, block, h = _check(parts, taps, mesh, first_shard_value, mode)
-    b, t = parts[0].shape
-    for r, part in enumerate(parts):
+    b, t = local_block(parts).shape
+    local = [r for r in range(len(parts)) if mesh.local(r)]
+    for r in local:
+        part = parts[r]
         if not part.is_cuda or part.device != mesh.ranks[r].device:
             raise ValueError(f"shard {r} must lie on {mesh.ranks[r].device}, "
                              f"got {part.device}")
@@ -199,48 +211,55 @@ def block2_fir_halo_fused_cuda(parts: Sequence[torch.Tensor], taps,
             raise ValueError(f"shards must be contiguous float32, got "
                              f"{part.dtype} strides {part.stride()} at rank "
                              f"{r}")
-    lib = _build.load("halo_fir_fused", _declare)
+    lib = library()
     ex = _hr.HaloExchange.of(mesh, b, h)
+    kinds = ex.kinds
     epoch = ex.begin()
     high = mode == "high"
-    out = []
-    for r, part in enumerate(parts):
+    none = _hr.Edge(None, None, None)
+    out: List[Optional[torch.Tensor]] = [None] * len(parts)
+    for r in local:
         with mesh.on(r) as rank:
-            nbr_buf, nbr_flag, my_buf, my_flag, counter, err = \
-                ex.launch_args(r)
+            nbr, mine = ex.launch_args(r)
+            nbr, mine = nbr or none, mine or none
             tabs = tap_tables(taps, mode, rank.device)
             y = torch.empty((b, t), dtype=torch.float32, device=rank.device)
-            left = my_buf
+            left = mine.buf
             if r == 0 and first_shard_value is not None:
                 carry = first_shard_value.to(
                     device=rank.device, dtype=torch.float32).contiguous()
                 left = carry.data_ptr()
             rc = lib.halo_fir_fused_launch(
-                part.data_ptr(), tabs[0].data_ptr(),
+                parts[r].data_ptr(), tabs[0].data_ptr(),
                 tabs[1].data_ptr() if high else None, y.data_ptr(), b, t,
-                block, len(taps), int(high), h, nbr_buf, nbr_flag, left,
-                my_flag, counter, err, epoch, int(_hr.WAIT_LIMIT_S * 1e9),
+                block, len(taps), int(high), h, nbr.buf, nbr.flag, left,
+                mine.flag, nbr.counter, nbr.ack, mine.ack, mine.rcount,
+                ex.err_ptr(r), epoch, int(_hr.WAIT_LIMIT_S * 1e9),
                 rank.stream.cuda_stream)
             _build.check(rc, "halo_fir_fused")
             ex.launched(r)
-        block2_fir_halo_fused_cuda.launches += 1
-        if any(mesh.ranks[q].device != rank.device
-               for q in (r - 1, r + 1) if 0 <= q < len(parts)):
-            block2_fir_halo_fused_cuda.cross_card_launches += 1
-        out.append(y)
+        _hr.count_launch(block2_fir_halo_fused_cuda, mesh,
+                         [_hr.PROTOCOL if k == _hr.DIRECT else k
+                          for k in kinds],
+                         [q for q in (r, r + 1) if 0 < q < len(parts)])
+        out[r] = y
     note_traffic("collective-permute", 4 * b * h, len(parts) - 1)
     return out
 
 
 block2_fir_halo_fused_cuda.launches = 0
 block2_fir_halo_fused_cuda.cross_card_launches = 0
+block2_fir_halo_fused_cuda.cross_process_launches = 0
 
 
-def block2_fir_halo_fused(parts: Sequence[torch.Tensor], taps, mesh: DspMesh,
-                          *, first_shard_value: Optional[torch.Tensor] = None,
-                          mode: str = "high") -> List[torch.Tensor]:
-    """Halo exchange + block2 FIR on a 1-D time mesh: kernel B4 on a CUDA
-    mesh, the plain version on a CPU mesh.  Orders rank against rank; the
+def block2_fir_halo_fused(parts: Sequence[Optional[torch.Tensor]], taps,
+                          mesh: DspMesh, *,
+                          first_shard_value: Optional[torch.Tensor] = None,
+                          mode: str = "high"
+                          ) -> List[Optional[torch.Tensor]]:
+    """Halo exchange + block2 FIR on a 1-D time mesh (its ranks in one
+    process or several of one host): kernel B4 on a CUDA mesh, the plain
+    version on a CPU mesh.  Orders rank against rank; the
     caller orders the mesh against its own stream (``mesh.fork`` /
     ``mesh.join``)."""
     _hr.check_time_mesh(mesh, parts)

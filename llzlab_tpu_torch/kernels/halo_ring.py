@@ -11,111 +11,219 @@ last ``h`` samples of rank ``r − 1``'s ``(C, T)`` tensor; rank 0 receives
   once per card (:func:`left_halo_ring_cuda`, which counts its launches in
   ``.launches``); a CPU mesh runs the plain version.  Nothing falls back.
 * :func:`left_halo_ring_plain` is the plain PyTorch version:
-  ``parallel.halo.left_halo``, copies ordered by stream events.
+  ``parallel.halo.left_halo``, copies ordered by stream events (sends of
+  ``torch.distributed`` between processes).
 
 One exchange is host-bound (the copy is microseconds of device time), so
 the wrapper does as little as it can per call: it groups the mesh's ranks
-by card (:func:`ranks_by_card`) and launches once per card, on the stream
-of the card's first rank, with one ``torch.empty`` for the card's halos.
-Between ranks of one card the kernel copies the left neighbour's row tails
-straight into the halo: no receive buffer, no flag, no wait; stream events
-alone order it.  Between cards it runs the protocol of
-``csrc/halo_exchange.cuh``: the kernel of the left card writes its last
-rank's tails into the right card's receive buffer and publishes a rising
-epoch in its flag; the kernel of the right card waits for the epoch and
-copies the buffer out.  :class:`HaloExchange` owns that state, one per
-``(mesh, C, h)``, kept in ``mesh.cache`` and shared with kernel B4 (which
-runs the protocol on every edge): receive buffers and flags, made when an
-edge first needs them, and a stream event that keeps the send of call
-``e + 1`` behind the receiver's launch of call ``e``, so that it never
-lands on a halo that is still being read.  A receiver whose sender never
-comes gives up after ``WAIT_LIMIT_S`` and sets an error word in pinned host
-memory; :meth:`HaloExchange.check` raises on it.
+by process and card (:func:`edge_plan`) and launches once per run of this
+process's ranks that share a card, on the stream of the run's first rank,
+with one ``torch.empty`` for the run's halos.  Each edge ``r − 1 → r`` is
+one of three kinds:
+
+* ``DIRECT`` (one process, one card): the kernel copies the left
+  neighbour's row tails straight into the halo: no receive buffer, no
+  flag, no wait; stream events alone order it.
+* ``PROTOCOL`` (one process, two cards): the protocol of
+  ``csrc/halo_exchange.cuh``: the kernel of the left card writes its last
+  rank's tails into the right card's receive buffer and publishes a rising
+  epoch in its flag; the kernel of the right card waits for the epoch and
+  copies the buffer out.  A stream event keeps the send of call ``e + 1``
+  behind the receiver's launch of call ``e``, so that it never lands on a
+  halo that is still being read.
+* ``PROCESS`` (two processes of one host, on one card or two): the same
+  protocol through CUDA IPC.  The receive buffer, flag and the sender's
+  ack word have their own ``cudaMalloc`` (a block of PyTorch's caching
+  allocator cannot be exported alone), are exported with
+  ``cudaIpcGetMemHandle`` and opened by the other process with
+  ``cudaIpcOpenMemHandle``; in place of the event, the receiver
+  acknowledges each epoch into the ack word once it has read the buffer,
+  and the sender waits for the previous epoch's ack before it stores.
+
+:class:`HaloExchange` owns that state, one per ``(mesh, C, h)``, kept in
+``mesh.cache`` and shared with kernel B4 (which runs the protocol on every
+edge).  Edges within a process are made when first needed.  Edges across
+processes are made when the exchange is made, by a handshake that every
+process joins at the same point, since every process walks the same
+exchanges in the same order: each exports the handles of its side, all
+are gathered with ``torch.distributed.all_gather_object`` (gloo or NCCL),
+and each opens the other side's.  The processes' epochs agree only if
+every process calls the halo functions of the mesh the same number of
+times, with the same ``(C, h)``.  The state is closed and freed when the
+exchange goes (with the mesh's cache, or at exit); a process frees its
+side only after its peers are done with it (a caller that drops a mesh
+while other processes still run on it synchronizes and joins them
+first).  An edge between two hosts raises, naming ``halo="ppermute"``
+(CUDA IPC works within one host); so does a failed open.
+
+A receiver whose sender never comes gives up after ``WAIT_LIMIT_S`` and
+sets an error word in pinned host memory of its own process (a sender
+whose acknowledgement never comes too); :meth:`HaloExchange.check` raises
+on it, in the process whose rank waited.
 
 Between cards the kernels store into the neighbour card's memory over
 NVLink: :func:`enable_peer_access` enables that explicitly, in both
-directions, when an edge is first made, and a pair of cards without peer
-access raises (nothing is staged through the host).  The cross-card branch
-of B3, and B4 with its neighbours on other cards, ran on four H100s of one
-host joined by NVLink: 1-D meshes laid out ``[0, 0, 1, 1]``, ``[0, 1, 2,
-3]``, ``[0, 0, 0, 0, 1, 1, 1, 1]`` and the channelizer on 2 and 4 cards,
-each bitwise the same ranks on one card (``tests/test_torch_multicard.py``,
-``chip_smoke.py`` phase 11).  ``left_halo_ring_cuda(..., _per_rank=True)``
-launches each rank alone on its own stream, so that every edge runs the
-protocol, also between ranks of one card: phase 11 checks the protocol so
-on a machine with one card.  The ranks of another process have no pointer
-here: a mesh across processes raises (it would need CUDA IPC).
+directions, when an edge within a process is first made, and a pair of
+cards without peer access raises (nothing is staged through the host).
+The cross-card branch of B3, and B4 with its neighbours on other cards,
+ran on four H100s of one host joined by NVLink: 1-D meshes laid out ``[0,
+0, 1, 1]``, ``[0, 1, 2, 3]``, ``[0, 0, 0, 0, 1, 1, 1, 1]`` and the
+channelizer on 2 and 4 cards, each bitwise the same ranks on one card
+(``tests/test_torch_multicard.py``, ``chip_smoke.py`` phase 11); across
+processes, two processes on one card and a process a card, bitwise the
+same ranks in one process (``chip_smoke.py`` phase 12).
+``left_halo_ring_cuda(..., _per_rank=True)`` launches each rank alone on
+its own stream, so that every edge runs the protocol, also between ranks
+of one card: phase 11 checks the protocol so on a machine with one card.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-from typing import List, Optional, Sequence
+import weakref
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from llzlab_tpu_torch.kernels import _build
 from llzlab_tpu_torch.parallel.halo import left_halo
-from llzlab_tpu_torch.parallel.mesh import TIME_AXIS, DspMesh, note_traffic
+from llzlab_tpu_torch.parallel.mesh import (TIME_AXIS, DspMesh, local_block,
+                                            note_traffic)
 
 __all__ = ["left_halo_ring", "left_halo_ring_cuda", "left_halo_ring_plain",
-           "HaloExchange", "check_exchanges", "ranks_by_card",
-           "same_card_edges", "enable_peer_access", "WAIT_LIMIT_S"]
+           "HaloExchange", "check_exchanges", "edge_plan", "mesh_plan",
+           "check_same_host", "ranks_by_card", "same_card_edges",
+           "enable_peer_access", "WAIT_LIMIT_S", "DIRECT", "PROTOCOL",
+           "PROCESS"]
 
 #: how long a receiving kernel waits for its sender before it gives up
 WAIT_LIMIT_S = 4.0
 #: the most ranks one card may hold: one launch of kernel B3 serves them all
 #: (MAX_RANKS in csrc/halo_ring.cu)
 HALO_MAX_RANKS = 16
+#: the kinds of edge r − 1 → r: both ranks on one card of this process (a
+#: direct copy), the send / wait protocol within a process, and across two
+#: processes (through CUDA IPC)
+DIRECT, PROTOCOL, PROCESS = "direct", "protocol", "process"
+#: bytes before the receive buffer in its own allocation: the flag and the
+#: receiver's count of reading blocks, an int each, padded
+_IPC_HEAD = 256
 
 left_halo_ring_plain = left_halo
 
 
-def ranks_by_card(devices: Sequence[torch.device]) -> List[List[int]]:
-    """Group the ranks of a 1-D time mesh by card: one list of consecutive
-    rank indices per device, in rank order; kernel B3 launches once per
-    group.  A device that comes back after another one raises: time
-    neighbours must share a card in one run, as ``make_dsp_mesh`` deals them
-    out.  So does a card with more than ``HALO_MAX_RANKS`` ranks."""
+def edge_plan(places: Sequence[Tuple[Optional[int], torch.device]],
+              me: Optional[int] = None, per_rank: bool = False
+              ) -> Tuple[List[List[int]], List[str]]:
+    """The launch plan of a 1-D time mesh from each rank's ``(process,
+    device)``: the runs of consecutive ranks that process ``me`` launches
+    (ranks of ``me`` that share a card; each rank alone with ``per_rank``),
+    and the kind of each edge ``r − 1 → r`` (``r = 1 … n − 1``):
+    :data:`DIRECT`, :data:`PROTOCOL` or :data:`PROCESS`.  A process of None
+    is this one (``me`` None).  A ``(process, device)`` that comes back
+    after another one raises: the ranks of a card of one process must be
+    consecutive, as ``make_dsp_mesh`` and ``global_dsp_mesh`` deal them.  So
+    does a card of one process with more than ``HALO_MAX_RANKS`` ranks."""
+    keys = [(p, torch.device(d)) for p, d in places]
     groups: List[List[int]] = []
-    seen = []
-    for r, dev in enumerate(devices):
-        dev = torch.device(dev)
-        if groups and dev == seen[-1]:
+    for r, key in enumerate(keys):
+        if groups and key == keys[groups[-1][0]]:
             groups[-1].append(r)
-        elif dev in seen:
+        elif any(keys[g[0]] == key for g in groups):
             raise ValueError(
-                f"rank {r} is on {dev}, which an earlier run of ranks "
-                f"already left: the ranks of one card must be consecutive "
-                f"(got {[str(d) for d in devices]})")
+                f"rank {r} is on {key[1]} of process {key[0]}, which an "
+                f"earlier run of ranks already left: the ranks of one card "
+                f"of a process must be consecutive (got "
+                f"{[(p, str(d)) for p, d in keys]})")
         else:
-            seen.append(dev)
             groups.append([r])
-    for dev, group in zip(seen, groups):
-        if len(group) > HALO_MAX_RANKS:
-            raise ValueError(f"{len(group)} ranks on {dev}: one launch of "
-                             f"the halo kernel serves at most "
+    for g in groups:
+        if len(g) > HALO_MAX_RANKS:
+            raise ValueError(f"{len(g)} ranks on {keys[g[0]][1]}: one launch "
+                             f"of the halo kernel serves at most "
                              f"{HALO_MAX_RANKS} ranks of a card")
-    return groups
+    kinds = [PROCESS if keys[r - 1][0] != keys[r][0]
+             else DIRECT if keys[r - 1] == keys[r] and not per_rank
+             else PROTOCOL for r in range(1, len(keys))]
+    runs = [g for g in groups if keys[g[0]][0] == me]
+    if per_rank:
+        runs = [[r] for g in runs for r in g]
+    return runs, kinds
+
+
+def mesh_plan(mesh: DspMesh, per_rank: bool = False
+              ) -> Tuple[List[List[int]], List[str]]:
+    """:func:`edge_plan` of a mesh's ranks, for this process."""
+    return edge_plan([(rank.process if rank.remote else None, rank.device)
+                      for rank in mesh.ranks], None, per_rank)
+
+
+def ranks_by_card(devices: Sequence[torch.device]) -> List[List[int]]:
+    """The runs of consecutive ranks of one card of a 1-D time mesh of one
+    process: kernel B3 launches once per run (:func:`edge_plan`)."""
+    return edge_plan([(None, d) for d in devices])[0]
 
 
 def same_card_edges(devices: Sequence[torch.device]) -> List[bool]:
-    """For each edge ``r − 1 → r`` (``r = 1 … n − 1``), whether both ranks
-    share a card: kernel B3 copies directly there, and runs the send / wait
-    protocol on the other edges."""
-    devs = [torch.device(d) for d in devices]
-    return [devs[r - 1] == devs[r] for r in range(1, len(devs))]
+    """For each edge ``r − 1 → r`` of a mesh of one process, whether both
+    ranks share a card: kernel B3 copies directly there, and runs the send
+    / wait protocol on the other edges."""
+    return [k == DIRECT for k in edge_plan([(None, d) for d in devices])[1]]
+
+
+def check_same_host(hosts: Sequence[str],
+                    edges: Sequence[Tuple[int, int]]) -> None:
+    """Raise if an edge ``(process of r − 1, process of r)`` between two
+    processes joins two hosts (``hosts``: each process's host name): CUDA
+    IPC maps memory within one host."""
+    far = sorted({(a, b) for a, b in edges if hosts[a] != hosts[b]})
+    if far:
+        raise RuntimeError(
+            f"the halo kernels cannot reach a rank on another host: edges "
+            f"between processes {far} join hosts "
+            f"{sorted({(hosts[a], hosts[b]) for a, b in far})}, and CUDA IPC "
+            f"maps memory within one host; use halo='ppermute' across hosts")
+
+
+class Edge(NamedTuple):
+    """Pointers of one protocol edge ``r − 1 → r`` valid in this process
+    (None where this process has no use for one): rank ``r``'s receive
+    buffer and flag, rank ``r − 1``'s send counter, and across processes
+    the ack word of rank ``r − 1`` and rank ``r``'s count of reading
+    blocks."""
+    buf: Optional[int]
+    flag: Optional[int]
+    counter: Optional[int]
+    ack: Optional[int] = None
+    rcount: Optional[int] = None
+
+
+def _release(owned: list, opened: list) -> None:
+    """Close what this process opened of other processes' exchange state,
+    then free its own (after its kernels are done with either)."""
+    lib = _build._LIBS.get("halo_ring")
+    if lib is not None:  # at teardown an error has nowhere to go
+        for dev, ptr in opened:
+            lib.halo_ipc_close(dev, ptr)
+        for dev, ptr in owned:
+            lib.halo_ipc_free(dev, ptr)
+    opened.clear()
+    owned.clear()
 
 
 class HaloExchange:
     """Receive buffers, flags, counters and error words of one halo
-    exchange pattern ``(C, h)`` on a CUDA time mesh."""
+    exchange pattern ``(C, h)`` on a CUDA time mesh; across processes also
+    the ack words, in memory of their own shared through CUDA IPC, which
+    ``close()`` closes and frees (so does the exchange's collection, or the
+    interpreter's exit)."""
 
     def __init__(self, mesh: DspMesh, c: int, h: int):
         n = len(mesh)
         self.mesh, self.c, self.h = mesh, c, h
         self.epoch = 0
+        self.kinds = mesh_plan(mesh)[1]
         self.bufs: List[Optional[torch.Tensor]] = [None] * n
         self.flags: List[Optional[torch.Tensor]] = [None] * n
         self.counters: List[Optional[torch.Tensor]] = [None] * n
@@ -124,6 +232,14 @@ class HaloExchange:
         self._err_np = self.err.numpy()  # the same memory, cheaper to read
         # per rank: the event of its last launch on this exchange
         self._done: List[Optional[torch.cuda.Event]] = [None] * n
+        # edges across processes, made by the handshake
+        self._ipc: dict = {}
+        self._owned: List[Tuple[int, int]] = []
+        self._opened: List[Tuple[int, int]] = []
+        self.close = weakref.finalize(self, _release, self._owned,
+                                      self._opened)
+        if PROCESS in self.kinds:
+            self._handshake()
 
     @classmethod
     def of(cls, mesh: DspMesh, c: int, h: int) -> "HaloExchange":
@@ -132,10 +248,95 @@ class HaloExchange:
             mesh.cache[key] = cls(mesh, c, h)
         return mesh.cache[key]
 
-    def edge(self, r: int):
-        """State of the protocol edge ``r − 1 → r``, made at first use:
-        ``(buffer, flag)`` of rank ``r`` and the counter of rank ``r − 1``,
-        as pointers."""
+    def _handshake(self) -> None:
+        """Make every edge across processes: allocate and export this
+        process's side, gather every process's handles, check that each
+        edge stays on one host, open the other side."""
+        import socket
+
+        import torch.distributed as dist
+
+        from llzlab_tpu_torch.kernels import halo_fir_fused
+
+        # both halo kernels are built before any process can launch one,
+        # so that no peer waits out WAIT_LIMIT_S behind a compiler
+        lib = _build.load("halo_ring", _declare)
+        halo_fir_fused.library()
+        ranks = self.mesh.ranks
+        world = dist.get_world_size() if dist.is_initialized() else 0
+        if {rank.process for rank in ranks} != set(range(world)):
+            raise ValueError(
+                "the halo kernels across processes make their edges in a "
+                "handshake of the whole process group: it needs "
+                "torch.distributed initialised and ranks of the mesh in "
+                f"every one of its {world} processes")
+        size = 4 * self.c * self.h
+        own, mine, edges = {}, {}, []
+        for r, kind in enumerate(self.kinds, start=1):
+            if kind != PROCESS:
+                continue
+            src, dst = ranks[r - 1], ranks[r]
+            edges.append((src.process, dst.process))
+            # the receiver: buffer, flag and count; the sender: its ack word
+            for key, rank, nbytes in ((("recv", r), dst, _IPC_HEAD + size),
+                                      (("ack", r), src, _IPC_HEAD)):
+                if not rank.remote:
+                    own[key] = self._alloc(lib, rank.device, nbytes)
+                    mine[key] = self._export(lib, rank.device, own[key])
+        got: list = [None] * world
+        dist.all_gather_object(got, (socket.gethostname(), mine))
+        check_same_host([g[0] for g in got], edges)
+        theirs = {k: v for _, handles in got for k, v in handles.items()}
+        for r, kind in enumerate(self.kinds, start=1):
+            if kind != PROCESS:
+                continue
+            src, dst = ranks[r - 1], ranks[r]
+            if not src.remote:
+                base = self._open(lib, src.device, theirs[("recv", r)])
+                self.counters[r - 1] = torch.zeros(1, dtype=torch.int32,
+                                                   device=src.device)
+                torch.cuda.synchronize(src.device)
+                self._ipc[r] = Edge(base + _IPC_HEAD, base,
+                                    self.counters[r - 1].data_ptr(),
+                                    ack=own[("ack", r)])
+            elif not dst.remote:
+                base = own[("recv", r)]
+                self._ipc[r] = Edge(base + _IPC_HEAD, base, None,
+                                    ack=self._open(lib, dst.device,
+                                                   theirs[("ack", r)]),
+                                    rcount=base + 4)
+
+    def _alloc(self, lib, dev: torch.device, nbytes: int) -> int:
+        ptr = ctypes.c_void_p()
+        _build.check(lib.halo_ipc_alloc(dev.index, nbytes, ctypes.byref(ptr)),
+                     f"cudaMalloc of {nbytes} bytes for the halo exchange "
+                     f"on {dev}")
+        self._owned.append((dev.index, ptr.value))
+        return ptr.value
+
+    def _export(self, lib, dev: torch.device, ptr: int) -> bytes:
+        handle = (ctypes.c_ubyte * 64)()
+        _build.check(lib.halo_ipc_export(dev.index, ptr, handle),
+                     f"cudaIpcGetMemHandle on {dev}")
+        return bytes(handle)
+
+    def _open(self, lib, dev: torch.device, handle: bytes) -> int:
+        ptr = ctypes.c_void_p()
+        raw = (ctypes.c_ubyte * 64).from_buffer_copy(handle)
+        rc = lib.halo_ipc_open(dev.index, raw, ctypes.byref(ptr))
+        if rc:
+            raise RuntimeError(
+                f"cudaIpcOpenMemHandle on {dev} failed (CUDA error {rc}): "
+                f"the halo kernels cannot reach the other process's halo "
+                f"buffer; use halo='ppermute'")
+        self._opened.append((dev.index, ptr.value))
+        return ptr.value
+
+    def edge(self, r: int) -> Edge:
+        """State of the protocol edge ``r − 1 → r``; within a process made
+        at first use."""
+        if r in self._ipc:
+            return self._ipc[r]
         if self.bufs[r] is None:
             src, dst = (self.mesh.ranks[q].device for q in (r - 1, r))
             if src != dst:
@@ -147,23 +348,33 @@ class HaloExchange:
                                                device=src)
             for dev in {src, dst}:  # the zeroed words exist before a kernel
                 torch.cuda.synchronize(dev)
-        return (self.bufs[r].data_ptr(), self.flags[r].data_ptr(),
-                self.counters[r - 1].data_ptr())
+        return Edge(self.bufs[r].data_ptr(), self.flags[r].data_ptr(),
+                    self.counters[r - 1].data_ptr())
 
     def err_ptr(self, r: int) -> int:
         return self.err.data_ptr() + 4 * r
 
     def check(self) -> None:
-        """Raise if a receive of this exchange timed out.  The word is host
-        memory: this waits for nothing and sees what finished kernels have
-        reported (:func:`check_exchanges` drains the streams first)."""
+        """Raise if a receive of this exchange timed out (or, across
+        processes, a send whose acknowledgement never came).  The word is
+        host memory: this waits for nothing and sees what finished kernels
+        have reported (:func:`check_exchanges` drains the streams first)."""
         if self._err_np.any():
             bad = {r: int(e) for r, e in enumerate(self._err_np) if e}
             self._err_np[:] = 0
+            got = {r: e for r, e in bad.items() if e > 0}
+            acks = {r: -e for r, e in bad.items() if e < 0}
+            msg = []
+            if got:
+                msg.append(f"the receive of rank(s) {sorted(got)} never "
+                           f"arrived within {WAIT_LIMIT_S} s (epochs {got})")
+            if acks:
+                msg.append(f"the send of rank(s) {sorted(acks)} waited "
+                           f"longer than {WAIT_LIMIT_S} s for the receiver "
+                           f"to read the previous epoch (epochs {acks})")
             raise RuntimeError(
-                f"halo exchange (C={self.c}, h={self.h}): the receive of "
-                f"rank(s) {sorted(bad)} never arrived within "
-                f"{WAIT_LIMIT_S} s (epochs {bad}); its output is invalid")
+                f"halo exchange (C={self.c}, h={self.h}): {'; '.join(msg)}; "
+                f"its output is invalid")
 
     def begin(self) -> int:
         """Start one exchange over all ranks: the new epoch."""
@@ -173,23 +384,24 @@ class HaloExchange:
 
     def before_send(self, r: int, stream: torch.cuda.Stream) -> None:
         """Order ``stream``'s send into rank ``r + 1``'s buffer behind that
-        rank's read of what the buffer holds now."""
+        rank's read of what the buffer holds now (within a process; across
+        processes the kernel waits for the receiver's acknowledgement)."""
         if self._done[r + 1] is not None:
             stream.wait_event(self._done[r + 1])
 
     def launch_args(self, r: int):
         """Pointers of a launch that runs the protocol on both sides of
-        rank ``r`` (kernel B4): ``(nbr_buf, nbr_flag, my_buf, my_flag,
-        counter, err)``, None where the rank has no such side.  Also orders
-        the launch behind the neighbour's read of the buffer it is about to
-        overwrite."""
-        nbr_buf = nbr_flag = my_buf = my_flag = counter = None
+        rank ``r`` (kernel B4): ``(nbr, mine)``, the :class:`Edge` of the
+        right and of the left side, None where the rank has no such side.
+        Also orders the launch behind the neighbour's read of the buffer it
+        is about to overwrite."""
+        nbr = mine = None
         if r + 1 < len(self.mesh):
-            nbr_buf, nbr_flag, counter = self.edge(r + 1)
+            nbr = self.edge(r + 1)
             self.before_send(r, self.mesh.ranks[r].stream)
         if r:
-            my_buf, my_flag, _ = self.edge(r)
-        return nbr_buf, nbr_flag, my_buf, my_flag, counter, self.err_ptr(r)
+            mine = self.edge(r)
+        return nbr, mine
 
     def launched(self, r: int, event: Optional[torch.cuda.Event] = None
                  ) -> None:
@@ -260,10 +472,6 @@ def check_time_mesh(mesh: DspMesh, parts: Sequence[torch.Tensor]) -> None:
     if mesh.axis_names != (TIME_AXIS,):
         raise ValueError(f"needs a 1-D ({TIME_AXIS!r},) mesh, got "
                          f"{mesh.axis_names}")
-    if mesh.is_distributed:
-        raise ValueError("needs a mesh of this process's ranks: the halo "
-                         "kernels address ranks by pointer, and a rank of "
-                         "another process has none here")
     if len(parts) != len(mesh):
         raise ValueError(f"{len(parts)} shards for {len(mesh)} ranks")
 
@@ -272,37 +480,71 @@ class _HaloRank(ctypes.Structure):
     """``HaloRank`` of csrc/halo_ring.cu: how one rank gets its halo."""
     _fields_ = [("src", ctypes.c_void_p), ("src_stride", ctypes.c_longlong),
                 ("out", ctypes.c_void_p), ("flag", ctypes.c_void_p),
-                ("err", ctypes.c_void_p)]
+                ("err", ctypes.c_void_p), ("ack", ctypes.c_void_p),
+                ("rcount", ctypes.c_void_p)]
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.halo_ring_launch.argtypes = [p, i, i, i, p, ll, i, p, p, p, i, ll, p]
+    lib.halo_ring_launch.argtypes = [p, i, i, i, p, ll, i, p, p, p, p, p, i,
+                                     ll, p]
     lib.halo_ring_launch.restype = i
     lib.halo_enable_peer_access.argtypes = [i, i]
     lib.halo_enable_peer_access.restype = i
+    lib.halo_ipc_alloc.argtypes = [i, ll, p]
+    lib.halo_ipc_export.argtypes = [i, p, p]
+    lib.halo_ipc_open.argtypes = [i, p, p]
+    lib.halo_ipc_close.argtypes = [i, p]
+    lib.halo_ipc_free.argtypes = [i, p]
+    for f in (lib.halo_ipc_alloc, lib.halo_ipc_export, lib.halo_ipc_open,
+              lib.halo_ipc_close, lib.halo_ipc_free):
+        f.restype = i
 
 
-def left_halo_ring_cuda(parts: Sequence[torch.Tensor], h: int, mesh: DspMesh,
-                        *, first_shard_value: Optional[torch.Tensor] = None,
-                        _per_rank: bool = False) -> List[torch.Tensor]:
-    """Launch kernel B3 once per card, on the stream of the card's first
-    rank; the stream of every other rank of the card is ordered before and
-    behind the launch by one event.  ``parts[r]``: ``(C, T)`` f32 on rank
-    ``r``'s device, unit stride along time (rows may be strided).  Returns
-    one ``(C, h)`` halo per rank, slices of one tensor per card whose memory
-    is held until every rank's stream is done with it (``record_stream``).
+def count_launch(wrapper, mesh: DspMesh, kinds: Sequence[str],
+                 edges: Sequence[int]) -> None:
+    """Count one launch of ``wrapper`` in ``.launches``, and in
+    ``.cross_card_launches`` / ``.cross_process_launches`` where one of the
+    launch's protocol ``edges`` (``r`` for ``r − 1 → r``) joins two cards
+    of this process / two processes."""
+    wrapper.launches += 1
+    ranks = mesh.ranks
+    if any(kinds[r - 1] == PROTOCOL and ranks[r - 1].device != ranks[r].device
+           for r in edges):
+        wrapper.cross_card_launches += 1
+    if any(kinds[r - 1] == PROCESS for r in edges):
+        wrapper.cross_process_launches += 1
+
+
+def left_halo_ring_cuda(parts: Sequence[Optional[torch.Tensor]], h: int,
+                        mesh: DspMesh, *,
+                        first_shard_value: Optional[torch.Tensor] = None,
+                        _per_rank: bool = False
+                        ) -> List[Optional[torch.Tensor]]:
+    """Launch kernel B3 once per run of this process's ranks on one card,
+    on the stream of the run's first rank; the stream of every other rank
+    of the run is ordered before and behind the launch by one event.
+    ``parts[r]``: ``(C, T)`` f32 on rank ``r``'s device, unit stride along
+    time (rows may be strided); None for a rank of another process.
+    Returns one ``(C, h)`` halo per rank of this process (None for the
+    others), slices of one tensor per run whose memory is held until every
+    rank's stream is done with it (``record_stream``).
 
     ``.launches`` counts the launches; ``.cross_card_launches`` those of
-    them that send to or wait for another card.  ``_per_rank`` (for the
+    them that send to or wait for another card of this process,
+    ``.cross_process_launches`` another process.  ``_per_rank`` (for the
     checks of the protocol, not an entry point): launch each rank alone on
     its own stream, every edge through the send / wait protocol, also
     between ranks of one card."""
     check_time_mesh(mesh, parts)
-    c, t = parts[0].shape if parts[0].dim() == 2 else (0, 0)
-    for r, part in enumerate(parts):
-        if not part.is_cuda or part.device != mesh.ranks[r].device:
-            raise ValueError(f"shard {r} must lie on {mesh.ranks[r].device}, "
+    ranks, n = mesh.ranks, len(mesh)
+    local = [r for r in range(n) if mesh.local(r)]
+    ref = local_block(parts)
+    c, t = ref.shape if ref.dim() == 2 else (0, 0)
+    for r in local:
+        part = parts[r]
+        if not part.is_cuda or part.device != ranks[r].device:
+            raise ValueError(f"shard {r} must lie on {ranks[r].device}, "
                              f"got {part.device}")
         if (part.dtype != torch.float32 or tuple(part.shape) != (c, t)
                 or part.stride(1) != 1):
@@ -316,30 +558,25 @@ def left_halo_ring_cuda(parts: Sequence[torch.Tensor], h: int, mesh: DspMesh,
             and tuple(first_shard_value.shape) != (c, h)):
         raise ValueError(f"first_shard_value must be {(c, h)}, got "
                          f"{tuple(first_shard_value.shape)}")
+    out: List[Optional[torch.Tensor]] = [None] * n
     if c == 0 or h == 0:  # nothing to exchange, nothing launched
-        return [torch.empty((c, h), dtype=torch.float32, device=rank.device)
-                for rank in mesh.ranks]
+        for r in local:
+            out[r] = torch.empty((c, h), dtype=torch.float32,
+                                 device=ranks[r].device)
+        return out
     key = ("halo_ring_layout", _per_rank)
     if key not in mesh.cache:
-        devices = [rank.device for rank in mesh.ranks]
-        cards = ranks_by_card(devices)
-        mesh.cache[key] = (
-            [[r] for r in range(len(devices))] if _per_rank else cards,
-            [False] * (len(devices) - 1) if _per_rank
-            else same_card_edges(devices),
-            same_card_edges(devices))
-    cards, same_card, on_one_card = mesh.cache[key]
+        mesh.cache[key] = mesh_plan(mesh, _per_rank)
+    runs, kinds = mesh.cache[key]
     lib = _build.load("halo_ring", _declare)
     ex = HaloExchange.of(mesh, c, h)
     epoch = ex.begin()
-    ranks, n = mesh.ranks, len(mesh)
-    out: List[torch.Tensor] = []
-    for run in cards:
+    for run in runs:
         first, last = run[0], run[-1]
         dev, stream = ranks[first].device, ranks[first].stream
         others = run[1:]  # whose tensors the launch reads and writes too
-        send = last + 1 < n  # the next rank is on another card
-        # the card's device and its first rank's stream, entered once
+        send = last + 1 < n  # the next rank is across a protocol edge
+        # the run's device and its first rank's stream, entered once
         with torch.cuda.stream(stream):
             halos = torch.empty((len(run), c, h), dtype=torch.float32,
                                 device=dev)
@@ -353,28 +590,30 @@ def left_halo_ring_cuda(parts: Sequence[torch.Tensor], h: int, mesh: DspMesh,
                         carry = first_shard_value.to(
                             device=dev, dtype=torch.float32).contiguous()
                         entry.src, entry.src_stride = carry.data_ptr(), h
-                elif same_card[r - 1]:  # the left neighbour's tails
+                elif kinds[r - 1] == DIRECT:
+                    # the left neighbour's tails
                     entry.src = parts[r - 1].data_ptr() + 4 * (t - h)
                     entry.src_stride = parts[r - 1].stride(0)
-                else:  # another card's: through the receive buffer
-                    entry.src, entry.flag, _ = ex.edge(r)
-                    entry.src_stride, entry.err = h, ex.err_ptr(r)
-            nbr_buf = nbr_flag = counter = None
+                else:  # through the receive buffer
+                    e = ex.edge(r)
+                    entry.src, entry.flag, entry.src_stride = e.buf, e.flag, h
+                    entry.err, entry.ack, entry.rcount = (ex.err_ptr(r),
+                                                          e.ack, e.rcount)
+            nbr = Edge(None, None, None)
             if send:
-                nbr_buf, nbr_flag, counter = ex.edge(last + 1)
+                nbr = ex.edge(last + 1)
                 ex.before_send(last, stream)
             for r in others:
                 stream.wait_event(ranks[r].mark())
             rc = lib.halo_ring_launch(
                 table, len(run), c, h,
                 parts[last].data_ptr() if send else None,
-                parts[last].stride(0), t, nbr_buf, nbr_flag, counter, epoch,
-                int(WAIT_LIMIT_S * 1e9), stream.cuda_stream)
+                parts[last].stride(0), t, nbr.buf, nbr.flag, nbr.counter,
+                nbr.ack, ex.err_ptr(last), epoch, int(WAIT_LIMIT_S * 1e9),
+                stream.cuda_stream)
             _build.check(rc, "halo_ring")
-            left_halo_ring_cuda.launches += 1
-            if (send and not on_one_card[last]) or (
-                    first and not on_one_card[first - 1]):
-                left_halo_ring_cuda.cross_card_launches += 1
+            count_launch(left_halo_ring_cuda, mesh, kinds,
+                         [r for r in (first, last + 1) if 0 < r < n])
             if table[0].flag:  # the next send into this buffer waits for
                 done = stream.record_event()  # this: an event that is kept
                 ex.launched(first, done)
@@ -385,21 +624,26 @@ def left_halo_ring_cuda(parts: Sequence[torch.Tensor], h: int, mesh: DspMesh,
             # the halos were allocated under the first rank's stream: keep
             # their memory from reuse there while rank r may still read it
             halos.record_stream(ranks[r].stream)
-        out.extend(halos.unbind(0))
+        for r, halo in zip(run, halos.unbind(0)):
+            out[r] = halo
     note_traffic("collective-permute", 4 * c * h, n - 1)
     return out
 
 
 left_halo_ring_cuda.launches = 0
 left_halo_ring_cuda.cross_card_launches = 0
+left_halo_ring_cuda.cross_process_launches = 0
 
 
-def left_halo_ring(parts: Sequence[torch.Tensor], h: int, mesh: DspMesh, *,
+def left_halo_ring(parts: Sequence[Optional[torch.Tensor]], h: int,
+                   mesh: DspMesh, *,
                    first_shard_value: Optional[torch.Tensor] = None
-                   ) -> List[torch.Tensor]:
-    """Left-halo exchange on a 1-D time mesh: kernel B3 on a CUDA mesh, the
-    plain version on a CPU mesh.  Orders rank against rank; the caller
-    orders the mesh against its own stream (``mesh.fork`` / ``mesh.join``)."""
+                   ) -> List[Optional[torch.Tensor]]:
+    """Left-halo exchange on a 1-D time mesh, whose ranks may live in
+    several processes of one host (None in ``parts`` for the ranks of
+    other processes): kernel B3 on a CUDA mesh, the plain version on a CPU
+    mesh.  Orders rank against rank; the caller orders the mesh against
+    its own stream (``mesh.fork`` / ``mesh.join``)."""
     check_time_mesh(mesh, parts)
     if mesh.is_cuda:
         return left_halo_ring_cuda(parts, h, mesh,

@@ -26,8 +26,11 @@ filtering engines:
 Streaming: ``fir_filter(concat(a, b))`` equals ``concat(ya, yb)`` with
 ``ya, zf = fir_filter(a, return_zf=True)`` and ``yb = fir_filter(b,
 zi=zf)``, bit for bit for ``block2`` and ``ols`` when ``len(a)`` is a
-multiple of the block (``block2_block``) or hop (``ols_hop``).  The
-history length is ``fir_state_len(ntaps, nfft, method)``.
+multiple of the block (``block2_block``) or hop (``ols_hop``).  On the
+CPU the plain versions run MKL, which splits a call over its threads by
+the call's batch: there ols holds this on one thread, and block2 for
+pieces of more than two rows (``tests/test_torch_fir_state.py``).  The
+history length is ``fir_state_len(ntaps, nfft, method)``, for "auto" too.
 """
 
 from __future__ import annotations
@@ -314,7 +317,11 @@ def block2_block(ntaps: int) -> int:
 
 
 def fir_state_len(ntaps: int, nfft: Optional[int] = None, method: str = "ols") -> int:
-    """Length of the streaming history ``zi``/``zf`` for fir_filter."""
+    """Length of the streaming history ``zi``/``zf`` for fir_filter;
+    "auto" names the engine that :func:`resolve_method` resolves it to, as
+    ``fir_filter(method="auto")`` does."""
+    if method == "auto":
+        method = resolve_method(method, ntaps)
     if method in ("direct", "im2col"):
         return ntaps - 1
     if method == "block2":
@@ -438,7 +445,9 @@ def _filter(x, zi, hlen: int, short_ok: int, return_zf: bool, engine):
     """Shared frame of the engines: ``x (..., T)`` as ``(B, T)`` f32 behind
     ``hlen`` samples of history (``zi``, zeros if None; a history of
     ``hlen − short_ok … hlen − 1`` samples is padded on the left with
-    zeros), ``engine(xpad)`` → ``(B, T)``, and the final history."""
+    zeros, a longer one is taken by its last ``hlen`` samples: history is
+    oldest first, and only its last ``ntaps − 1`` meet a tap),
+    ``engine(xpad)`` → ``(B, T)``, and the final history."""
     shape = x.shape
     t = shape[-1]
     xb = x.reshape(-1, t).to(torch.float32)
@@ -448,7 +457,9 @@ def _filter(x, zi, hlen: int, short_ok: int, return_zf: bool, engine):
     else:
         hist = zi.reshape(b, -1).to(torch.float32)
         short = hlen - hist.shape[-1]
-        if 0 < short <= short_ok:
+        if short < 0:
+            hist = hist[:, -hlen:]
+        elif 0 < short <= short_ok:
             hist = F.pad(hist, (short, 0))
         elif short:
             raise ValueError(
@@ -482,8 +493,9 @@ def fir_filter(
         2048 taps, else ols: the JAX package's rule on an accelerator).
       nfft: overlap-save FFT size; default ``default_nfft(ntaps)``.
       zi: optional ``(..., fir_state_len(ntaps, nfft, method))`` initial
-        history (oldest first); zeros if omitted.  "block2" also takes a
-        shorter history of ``ntaps − 1 … block`` samples and pads it on
+        history (oldest first); zeros if omitted.  A longer history is
+        taken by its last ``fir_state_len`` samples.  "block2" also takes
+        a shorter history of ``ntaps − 1 … block`` samples and pads it on
         the left with zeros to a block (those samples meet no tap).
       return_zf: also return the final history (always the full state
         length).

@@ -11,15 +11,22 @@ group without NCCL raises), gloo for CPU ranks.
 :func:`global_dsp_mesh` deals ranks over every process's devices: each
 process holds its own ranks, the others are remote ranks of the same
 ``DspMesh``.  Only the exchange points cross a process boundary
-(``DspMesh.move``: the halo, the state tails, the reshard, the IIR carry,
-the heartbeat's ``all_reduce``), so the sharded ops and the channelizer's
-``sharded_step`` with ``halo="ppermute"`` run on such a mesh; kernels B3
-and B4 raise on it (they address the neighbour's buffer by pointer).
-NCCL ran between 2 and 4 processes of one machine, a card each, bit for
-bit one process's mesh (``tests/test_torch_distributed.py``,
-``tests/test_torch_multicard.py``); across hosts it is unverified.  NCCL
-refuses two processes on one card: there the CUDA path runs as a group of
-one.
+(``DspMesh.move`` / ``fetch``: the halo, the state tails, the reshard, the
+IIR carry, the tap-parallel FIR's partial sums, the heartbeat's
+``all_reduce``), so the sharded ops, ``fir_filter_tap_parallel`` and the
+channelizer's ``sharded_step`` run on such a mesh.  Kernels B3 and B4
+(``halo="rdma"`` / ``"rdma_fused"``, on a 1-D mesh: ``mesh.row(0)`` of a
+``(1, n)`` one) reach the neighbour of another process through CUDA IPC:
+each process opens the other's receive buffer, flag and ack word in a
+handshake over the process group (``kernels/halo_ring.py``), which works
+over gloo as well as NCCL.  That holds within one host; an edge between
+two hosts raises, naming ``halo="ppermute"``.  NCCL ran between 2 and 4
+processes of one machine, a card each, bit for bit one process's mesh
+(``tests/test_torch_distributed.py``, ``tests/test_torch_multicard.py``);
+across hosts it is unverified.  NCCL refuses two processes on one card:
+there a CUDA mesh of several processes takes a gloo group (the halo
+kernels exchange only their handles through it), or the CUDA path runs
+as a group of one.
 """
 
 from __future__ import annotations

@@ -35,10 +35,13 @@ host's, not a device's.
 
     python scripts/pod_scaling_torch.py [--scaling weak|strong] [--cpu]
         [--procs] [--meshes 1x1,2x2] [--iters 5] [--fir-method fused]
-        [--frames local] [--metrics out.jsonl]
+        [--frames local] [--halo ppermute] [--metrics out.jsonl]
 
-The step is config 5's at ``highest`` with ``halo="ppermute"`` (the
-halo mode that also runs across processes).
+The step is config 5's at ``highest`` with ``halo="ppermute"`` by
+default; ``--halo rdma`` (kernel B3) or ``rdma_fused`` (B4, with
+``--fir-method block2`` and at most 256 channels) run on the time row of
+``1xn`` meshes, in one process or with ``--procs`` across processes
+(through CUDA IPC between the processes of this machine).
 
 Prints one JSON line per mesh point and a final summary line.  Needs a
 card unless ``--cpu``.
@@ -130,6 +133,11 @@ def run_point(args, cfg, n_channel: int, n_time: int, procs: int) -> dict:
         mesh = make_dsp_mesh(n_channel, n_time, devices=["cpu"] * nd)
     else:
         mesh = make_dsp_mesh(n_channel, n_time)
+    if args.halo != "ppermute":  # the kernel halos run on a 1-D time mesh
+        if n_channel != 1:
+            raise ValueError(f"--halo {args.halo} needs 1xn meshes, got "
+                             f"{n_channel}x{n_time}")
+        mesh = mesh.row(0)
     home = mesh.ranks[mesh.home].device
     chan = make_channelizer(cfg, args.fir_method, home)
     chan.validate_sharded_shapes(mesh, c_total, t_total, args.frames)
@@ -143,7 +151,7 @@ def run_point(args, cfg, n_channel: int, n_time: int, procs: int) -> dict:
     mesh.fork()
     parts = mesh.map(block, mesh.ranks, range(nd))
     mesh.join()
-    step = chan.sharded_step(mesh, frames=args.frames)
+    step = chan.sharded_step(mesh, halo=args.halo, frames=args.frames)
     state = chan.init_state(c_total, device=home)
     traffic = collective_traffic(lambda: step(parts, state))
     spec, st = step(parts, state)  # warm-up
@@ -253,6 +261,8 @@ def main(argv=None):
     p.add_argument("--fir-method", default="fused",
                    choices=["fused", "block2", "ols"])
     p.add_argument("--frames", default="local", choices=["local", "a2a"])
+    p.add_argument("--halo", default="ppermute",
+                   choices=["ppermute", "rdma", "rdma_fused"])
     p.add_argument("--metrics", default=None,
                    help="append JSONL events to this path")
     p.add_argument("--worker", default=None, help=argparse.SUPPRESS)
@@ -298,6 +308,8 @@ def main(argv=None):
           f"nvidia-smi={smi}", file=sys.stderr, flush=True)
     run_cfg = dict(cfg, fir_method=args.fir_method, frames=args.frames,
                    procs=args.procs)
+    if args.halo != "ppermute":  # the hash of the ppermute runs stays
+        run_cfg["halo"] = args.halo
     points, base = [], None
     for nc, nt in shapes:
         rec = (spawn_point(args, nc, nt) if args.procs

@@ -844,3 +844,40 @@ def test_sharded_ops_on_the_card():
     bad = torch.zeros(64, device="cuda")
     bad[50] = float("nan")
     assert heartbeat(mesh)["ok"] and not heartbeat(mesh, bad)["ok"]
+
+
+@pytest.mark.cuda
+def test_halo_kernels_between_two_processes_of_one_card(tmp_path):
+    """Kernels B3 and B4 between two processes on ``cuda:0`` (gloo for the
+    handshake of CUDA IPC, the mesh ``[P0, P0, P1, P1]``): each process's
+    ranks bitwise the same ranks in one process and B3 the plain version,
+    over three epochs with a carry, B4 at both precisions (the worker
+    raises otherwise); every launch of the path crosses to the other
+    process at one edge; a sender held back past the wait limit raises in
+    the receiving process alone, and the next exchange is right."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from scripts import halo_ipc_worker_torch as hw
+
+    res = hw.launch("card", 2, str(tmp_path), [
+        "--channels", "24", "--t-loc", "4096", "--b4-channels", "24", "--h",
+        "63", "--iters", "2"])
+    for r in res:
+        for path, counts in r["paths"].items():
+            kernel = "halo_ring" if path.startswith("B3") else \
+                "halo_fir_fused"
+            other = "halo_fir_fused" if kernel == "halo_ring" else \
+                "halo_ring"
+            assert counts[other] == [0, 0], (path, counts)
+            n, across = counts[kernel]
+            # one B3 launch a process an epoch; B4 one a rank
+            assert n == (3 if kernel == "halo_ring" else 2), (path, counts)
+            assert across == (3 if kernel == "halo_ring" else 1)
+        assert r["b4_snr_db"]["highest"] >= FLOOR_DB["highest"]
+        assert r["b4_snr_db"]["high"] >= FLOOR_DB["high"]
+    receiver = res[0]["late_receiver"] * 2 // 4  # its process
+    for r in res:
+        if r["process"] == receiver:
+            assert "never arrived" in r["late_sender"], r["late_sender"]
+        else:
+            assert r["late_sender"] == "no error"

@@ -6,7 +6,10 @@ the process boundary (the halo, the state tail, the reshard, the IIR
 carry, the heartbeat) gives each rank what one process gives it on a
 4-rank CPU mesh, bit for bit; so do two steps of the channelizer's
 ``sharded_step`` (``halo="ppermute"``, frames local and ``a2a``), and
-each process gets the whole stream state back.  Then the multi-process demo
+each process gets the whole stream state back.  So do kernels B3 and B4
+(their plain versions on CPU ranks) with a carry on the mesh's time row,
+the channelizer with ``halo="rdma"`` and ``"rdma_fused"`` and the
+tap-parallel FIR.  Then the multi-process demo
 (``scripts/multihost_fir_demo_torch.py``), clean and with a worker killed
 and the run resumed from its checkpoint.  Marked ``multihost``, not
 ``slow``: each process start costs seconds, not minutes.  The same two
@@ -29,6 +32,7 @@ from llzlab_tpu_torch.parallel.mesh import DspMesh, TIME_AXIS, shard
 from llzlab_tpu_torch.parallel.reshard import to_channel_major
 from llzlab_tpu_torch.parallel.sharded_ops import sosfilt_sharded
 from llzlab_tpu_torch.runtime import distributed as rd
+from tests.torch_dist_worker import CZ_KERNEL_RUNS, KERNEL_OUTPUTS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 120
@@ -116,15 +120,31 @@ def _same_as_one_process(out, device):
                                           err_msg=name)
 
 
-def channelizer_same_as_one_process(out, devices, n_procs: int):
-    """Each step's spectra of the channelizer runs in ``out`` == those of
-    one process's 4-rank mesh on ``devices``, and the state every process
-    got back == that mesh's, bit for bit."""
+def kernels_same_as_one_process(out, devices, names=None):
+    """The outputs ``names`` of ``torch_dist_worker.KERNEL_OUTPUTS`` in
+    ``out`` == those of one process's 4-rank mesh on ``devices``, bit for
+    bit."""
+    import tests.torch_dist_worker as w
+
+    mesh = DspMesh(list(devices), (TIME_AXIS,))
+    want = w.kernel_outputs(mesh, shard(torch.from_numpy(w.signal()), mesh))
+    mesh.join()
+    for name in names or w.KERNEL_OUTPUTS:
+        for got, ref in zip(_blocks(out, name), want[name]):
+            np.testing.assert_array_equal(got, ref.cpu().numpy(),
+                                          err_msg=name)
+
+
+def channelizer_same_as_one_process(out, devices, n_procs: int, runs=None):
+    """Each step's spectra of the channelizer ``runs`` (default
+    ``CZ_RUNS``) in ``out`` == those of one process's 4-rank mesh on
+    ``devices``, and the state every process got back == that mesh's, bit
+    for bit."""
     import tests.torch_dist_worker as w
 
     mesh = DspMesh(list(devices), (TIME_AXIS,))
     want = w.channelizer_runs(mesh, lambda v: shard(torch.from_numpy(v),
-                                                    mesh))
+                                                    mesh), runs or w.CZ_RUNS)
     mesh.join()
     for name, (spec, st) in want.items():
         for got, ref in zip(_blocks(out, name), spec):
@@ -148,32 +168,42 @@ def test_channelizer_across_the_process_boundary_is_bitwise(two_process_run):
     channelizer_same_as_one_process(two_process_run, ["cpu"] * 4, 2)
 
 
-def test_channelizer_kernel_halos_refuse_a_mesh_across_processes():
-    """``rdma`` / ``rdma_fused`` address the neighbour's buffer by pointer:
-    on a mesh whose ranks 2 and 3 live in another process they raise,
-    naming CUDA IPC; ``ppermute`` builds."""
-    import tests.torch_dist_worker as w
+@pytest.mark.multihost
+@pytest.mark.parametrize("run", CZ_KERNEL_RUNS,
+                         ids=[f"{r[0]}-{r[3]}" for r in CZ_KERNEL_RUNS])
+def test_channelizer_kernel_halos_across_the_process_boundary_are_bitwise(
+        two_process_run, run):
+    """``halo="rdma"`` (fused, block2) and ``"rdma_fused"`` on the time row
+    of the two processes' mesh: two steps, each process's state, bitwise
+    one process's mesh."""
+    channelizer_same_as_one_process(two_process_run, ["cpu"] * 4, 2, [run])
 
-    mesh = DspMesh(["cpu"] * 4, (TIME_AXIS,), processes=[0, 0, 1, 1])
-    assert mesh.is_distributed and mesh.homes == [0, 2]
-    for method, halo_mode in (("fused", "rdma"), ("block2", "rdma"),
-                              ("block2", "rdma_fused")):
-        with pytest.raises(ValueError, match="CUDA IPC"):
-            w.channelizer(method, "cpu").sharded_step(mesh, halo=halo_mode)
-    w.channelizer("fused", "cpu").sharded_step(mesh)
+
+@pytest.mark.multihost
+@pytest.mark.parametrize("name", KERNEL_OUTPUTS)
+def test_halo_kernels_and_tap_parallel_across_the_boundary_are_bitwise(
+        two_process_run, name):
+    """``left_halo_ring`` and ``block2_fir_halo_fused``, each with a carry,
+    on the time row of the two processes' mesh, and
+    ``fir_filter_tap_parallel`` over it: bitwise one process's mesh."""
+    kernels_same_as_one_process(two_process_run, ["cpu"] * 4, [name])
 
 
 @pytest.mark.cuda
 @pytest.mark.multihost
 def test_exchanges_across_processes_over_nccl_are_bitwise(tmp_path):
     """The NCCL point-to-point sends (halo, tail, reshard, IIR carry) and
-    all_reduce (heartbeat) between two processes, a card each."""
+    all_reduce (heartbeat) between two processes, a card each; kernels B3
+    and B4 between them through CUDA IPC, and the tap-parallel FIR."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two NVIDIA GPUs (NCCL will not put two "
                     "processes on one card)")
     out = _launch(tmp_path, "cuda")
     _same_as_one_process(out, "cuda")
     channelizer_same_as_one_process(out, ["cuda"] * 4, 2)
+    # B3 and B4 across the two processes, through CUDA IPC
+    kernels_same_as_one_process(out, ["cuda"] * 4)
+    channelizer_same_as_one_process(out, ["cuda"] * 4, 2, CZ_KERNEL_RUNS)
     infos = [json.load(open(os.path.join(out, f"info_{p}.json")))
              for p in range(2)]
     assert [(i["clean"], i["nan"]) for i in infos] == [(True, False)] * 2

@@ -162,11 +162,14 @@ def test_exchanges_refuse_what_they_cannot_serve():
         ph.left_halo(parts, 8, mesh, first_shard_value=torch.zeros(4, 8))
     with pytest.raises(ValueError, match="1-D"):
         hr.left_halo_ring(parts, 8, mesh)
-    # a time mesh holding ranks of another process: no kernel serves it
+    # a time mesh holding ranks of another process: the kernels reach
+    # them through CUDA IPC, within one host only
     remote = pm.DspMesh(["cpu"] * 4, (pm.TIME_AXIS,), processes=[0, 0, 1, 1])
     assert remote.is_distributed and remote.local(1) and not remote.local(2)
-    with pytest.raises(ValueError, match="another process"):
-        hr.left_halo_ring([torch.zeros(4, 256)] * 2 + [None] * 2, 8, remote)
+    assert hr.mesh_plan(remote) == ([[0, 1]], [hr.DIRECT, hr.PROCESS,
+                                               hr.DIRECT])
+    with pytest.raises(RuntimeError, match="another host"):
+        hr.check_same_host(["a", "b"], [(0, 1)])
     with pytest.raises(ValueError, match="lives in process 1"):
         with remote.on(3):
             pass

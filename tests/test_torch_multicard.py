@@ -241,13 +241,19 @@ def test_the_tool_default_mesh_on_the_cards(tmp_path):
 def test_four_processes_over_nccl_are_the_four_card_mesh(tmp_path):
     """Four processes, a card each, over NCCL: the halo, the state tail,
     the reshard, the IIR carry and two channelizer steps (``ppermute``,
-    frames local and ``a2a``) give each rank what one process's mesh of
-    the four cards gives it, and every process the same state."""
+    frames local and ``a2a``; ``rdma`` and ``rdma_fused``, kernels B3 and
+    B4 between the processes through CUDA IPC) give each rank what one
+    process's mesh of the four cards gives it, and every process the same
+    state; so do B3 and B4 called directly and the tap-parallel FIR."""
     _need(4)
     from tests.test_torch_distributed import (_launch, _same_as_one_process,
-                                              channelizer_same_as_one_process)
+                                              channelizer_same_as_one_process,
+                                              kernels_same_as_one_process)
+    from tests.torch_dist_worker import CZ_KERNEL_RUNS
 
     out = _launch(tmp_path, "cuda", n_procs=4)
+    cards = [torch.device("cuda", i) for i in range(4)]
     _same_as_one_process(out, "cuda")
-    channelizer_same_as_one_process(
-        out, [torch.device("cuda", i) for i in range(4)], 4)
+    channelizer_same_as_one_process(out, cards, 4)
+    channelizer_same_as_one_process(out, cards, 4, CZ_KERNEL_RUNS)
+    kernels_same_as_one_process(out, cards)

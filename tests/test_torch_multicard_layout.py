@@ -135,3 +135,52 @@ def test_peer_access_refuses_expandable_segments(var, monkeypatch):
     with pytest.raises(RuntimeError, match="expandable_segments"):
         hr.enable_peer_access(torch.device("cuda", 0),
                               torch.device("cuda", 1))
+
+
+def _places(layout):
+    return [(p, torch.device("cuda", d)) for p, d in layout]
+
+
+D, P, X = hr.DIRECT, hr.PROTOCOL, hr.PROCESS
+
+
+@pytest.mark.parametrize("layout,kinds,runs", [
+    # two processes on one card, two ranks each
+    ([(0, 0), (0, 0), (1, 0), (1, 0)], [D, X, D], {0: [[0, 1]], 1: [[2, 3]]}),
+    # a process a card, each seeing its card as cuda:0 ...
+    ([(p, 0) for p in range(4)], [X, X, X], {p: [[p]] for p in range(4)}),
+    # ... or every card
+    ([(p, p) for p in range(4)], [X, X, X], {p: [[p]] for p in range(4)}),
+    # two processes of two cards each
+    ([(0, 0), (0, 1), (1, 0), (1, 1)], [P, X, P], {0: [[0], [1]],
+                                                   1: [[2], [3]]}),
+])
+def test_edge_plan_by_process_and_card(layout, kinds, runs):
+    """Each edge copies directly (one process, one card), runs the protocol
+    within a process (two cards), or crosses processes (CUDA IPC); each
+    process launches its own runs of ranks only.  Launched each rank
+    alone, no edge copies directly and every run is one rank."""
+    places = _places(layout)
+    for me, want in runs.items():
+        got_runs, got_kinds = hr.edge_plan(places, me)
+        assert got_kinds == kinds and got_runs == want
+        alone, alone_kinds = hr.edge_plan(places, me, per_rank=True)
+        assert alone == [[r] for run in want for r in run]
+        assert alone_kinds == [P if k == D else k for k in kinds]
+    assert hr.edge_plan(places, 9) == ([], kinds)  # a process of no rank
+
+
+def test_edge_plan_of_a_mesh_across_processes_and_its_refusals():
+    mesh = DspMesh(["cpu"] * 4, (TIME_AXIS,), processes=[0, 0, 1, 1])
+    assert hr.mesh_plan(mesh) == ([[0, 1]], [D, X, D])
+    # a card of one process comes back after another process's ranks
+    with pytest.raises(ValueError, match="consecutive"):
+        hr.edge_plan(_places([(0, 0), (1, 0), (0, 0)]), 0)
+    # the same card in two processes is two runs
+    assert hr.edge_plan(_places([(0, 0), (1, 0)]), 1) == ([[1]], [X])
+
+
+def test_an_edge_across_hosts_raises_naming_ppermute():
+    hr.check_same_host(["a", "a", "b"], [(0, 1)])
+    with pytest.raises(RuntimeError, match="halo='ppermute'"):
+        hr.check_same_host(["a", "a", "b"], [(0, 1), (1, 2)])

@@ -72,3 +72,28 @@ def test_the_model_is_the_jax_scripts_for_a_process_a_rank():
         # one process: the tails go to rank 0 alone
         assert ps.comm_bytes(chan, 1, n, 64) == \
             ((n - 1) + (n > 1)) * 64 * h * 4
+
+
+@pytest.mark.parametrize("halo,method", [("rdma", "fused"),
+                                         ("rdma_fused", "block2")])
+def test_kernel_halos_run_on_the_time_row_in_process(halo, method, capsys):
+    """``--halo rdma`` / ``rdma_fused`` on ``1xn`` meshes (the plain
+    versions of B3 and B4 on CPU ranks, in this process): the model's
+    bytes are the count, as with ``ppermute``; a mesh of two channel rows
+    raises."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    try:
+        import pod_scaling_torch as ps
+    finally:
+        sys.path.pop(0)
+    assert ps.main(["--cpu", "--iters", "1", "--halo", halo, "--fir-method",
+                    method, "--meshes", "1x1,1x2"]) == 0
+    lines = [json.loads(v) for v in capsys.readouterr().out.splitlines()]
+    assert [p["mesh"] for p in lines[:-1]] == ["1x1", "1x2"]
+    assert lines[-1]["config"]["halo"] == halo
+    for p in lines[:-1]:
+        assert p["comm_bytes_per_step"] == p["comm_bytes_hlo"], p
+    assert lines[1]["comm_bytes_hlo"] > 0
+    with pytest.raises(ValueError, match="1xn"):
+        ps.main(["--cpu", "--iters", "1", "--halo", halo, "--fir-method",
+                 method, "--meshes", "2x2"])

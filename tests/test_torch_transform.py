@@ -158,6 +158,12 @@ def test_block2_takes_a_short_history_and_others_reject_it():
         pfir.fir_filter(x, taps, method="block2",
                         zi=hist[:, block - (ntaps - 2):])
     with pytest.raises(ValueError, match="zi must hold"):
-        pfir.fir_filter(x, taps, method="direct", zi=hist)
+        pfir.fir_filter(x, taps, method="direct",
+                        zi=hist[:, block - (ntaps - 2):])
+    # a longer history is taken by its last ntaps − 1 samples
+    torch.testing.assert_close(
+        pfir.fir_filter(x, taps, method="direct", zi=hist),
+        pfir.fir_filter(x, taps, method="direct",
+                        zi=hist[:, block - (ntaps - 1):]), rtol=0, atol=0)
     with pytest.raises(ValueError, match="too small"):
         pfir.fir_filter(x, taps, method="ols", nfft=256)
