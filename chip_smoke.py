@@ -129,16 +129,23 @@ checks them:
    analytic model, and for ``halo_overlap`` and the pipeline the
    profiler's device time summed over streams against the event time;
 11. several cards (``multicard_paths``): on one card B3's protocol with
-   each rank launched alone; on two or more config 5 over 1-D meshes of
-   2 and 4 cards and (2, 2) / (4, 1), every mode bitwise the same ranks
-   on one card (``--only-multicard`` runs phases 1 and 11 alone);
+   each rank launched alone, and B3 and B4 with every edge a ``NET`` edge
+   (``_net=True``: the halo through a device copy on a transfer stream,
+   the kernels' receive half alone), bitwise the ranks' normal launch; on
+   two or more config 5 over 1-D meshes of 2 and 4 cards and (2, 2) /
+   (4, 1), every mode bitwise the same ranks on one card, and every kind
+   of cross-card edge of B3 and B4 once more in a process under
+   ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``, bitwise
+   (``--only-multicard`` runs phases 1 and 11 alone);
 12. across processes (``process_paths``, workers of
    ``scripts/halo_ipc_worker_torch.py``): B3 and B4 between two processes
    of one card through CUDA IPC, bitwise the same ranks in one process;
    with two or more cards config 5's ``rdma`` / ``rdma_fused`` steps on 2
    and 4 processes a card, bitwise one process's mesh over the same
-   cards, and the tap-parallel FIR on 2 (``--only-processes`` runs phases
-   1 and 12 alone).
+   cards, and the tap-parallel FIR on 2; then all of it again with each
+   process a host of its own (``NET`` edges: the tails through NCCL held
+   to its network transport) (``--only-processes`` runs phases 1 and 12
+   alone).
 
 Every phase raises on failure.  The last line of stdout is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -146,7 +153,8 @@ A kernel's ``launches`` there sums the main paths it runs on, each counted
 from 0 over one run (B2: the channelizer at ``high``, config 1 in each
 mode and the ``fir`` tool); ``launches_by_path`` gives each count (a
 path of phase 12 sums its worker processes'), and B3 and B4 carry
-``ms_across_processes``.
+``ms_across_processes``, ``ms_across_hosts`` (None with one card) and
+``ms_net_edges_one_card``.
 Needs one CUDA GPU; exits non-zero, printing no result, without one.
 
     python3 chip_smoke.py
@@ -370,13 +378,18 @@ def multicard_paths(dev, smi, wrappers):
     log(f"[phase11] {path}: every edge through the send / wait protocol, "
         f"h = 63, 1024, 2048 with and without a carry, == plain version "
         f"bitwise, {got[B3]} launches (one card: not a cross-card run)")
-    del parts1, got, plain
+    del got, plain
+
+    # ---- the NET branch on one card: every edge through a transfer stream
+    net_ms = net_edges_one_card(dev, smi, wrappers, x, parts1, mesh1, chans,
+                                gen, by_path, fail)
+    del parts1
     if count < 2:
         log(f"[phase11] one card visible ({count}): ran on one card, the "
             f"multi-card paths need two or more")
         del x
         torch.cuda.empty_cache()
-        return by_path, across_ms
+        return by_path, across_ms, net_ms
 
     # ---- peer access: what PyTorch's copies leave, then made explicit ----
     a, b = torch.device("cuda", 0), torch.device("cuda", 1)
@@ -387,6 +400,33 @@ def multicard_paths(dev, smi, wrappers):
         f"them: cudaDeviceEnablePeerAccess returned "
         f"{['enabled now', 'already enabled'][rc[0] < 0]} / "
         f"{['enabled now', 'already enabled'][rc[1] < 0]}")
+
+    # ---- the cross-card edges under PyTorch's expandable segments --------
+    t0 = time.perf_counter()
+    want = cross_card_digests(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "digests.json")
+        env = dict(os.environ,
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__),
+             "--cross-card-digests", out], env=env, capture_output=True,
+            text=True, timeout=600, cwd=os.path.dirname(
+                os.path.abspath(__file__)))
+        if proc.returncode:
+            fail(f"under expandable_segments: exit {proc.returncode}\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        with open(out) as f:
+            got = json.load(f)
+    if got != want:
+        fail(f"under expandable_segments: "
+             f"{sorted(k for k in want if got.get(k) != want[k])} != the "
+             f"default allocator's bitwise")
+    log(f"[phase11] every cross-card edge of B3 and B4 under "
+        f"PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True (another "
+        f"process): {len(want)} outputs ({', '.join(sorted(want))}) == the "
+        f"default allocator's bitwise, in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     def cz_run(path, ch, mesh, parts, state_c, halo, frames, overlap,
                expect):
@@ -600,7 +640,198 @@ def multicard_paths(dev, smi, wrappers):
         f"against Channelizer.step (floor {SHARDED_FLOOR_DB})")
     del spec, ref, xt
     torch.cuda.empty_cache()
-    return by_path, across_ms
+    return by_path, across_ms, net_ms
+
+
+def net_edges_one_card(dev, smi, wrappers, x, parts1, mesh1, chans, gen,
+                       by_path, fail):
+    """Phase 11's ``NET`` branch on one card: B3 and B4 with every edge of
+    ``mesh1`` (ranks of ``dev``, one process) a ``NET`` edge, whose
+    transport is a device copy on each receiving rank's transfer stream
+    (``_net=True``): B3 at the three halo widths with and without a carry
+    bitwise the ranks' normal launch and the plain version, B4 at 256 x
+    327 680 a rank at both precisions over three epochs bitwise the normal
+    launch and at the kernel floors against the plain version in float64.
+    The launches of the ``_net`` runs are counted (each across a ``NET``
+    edge), the others not.  Returns ``{kernel: {"ms", "normal_ms"}}``,
+    CUDA-event medians of the ``_net`` launch and the normal one."""
+    import torch
+
+    from llzlab_tpu_torch.kernels import block2_fir as bf
+    from llzlab_tpu_torch.kernels import halo_fir_fused as hf
+    from llzlab_tpu_torch.kernels import halo_ring as hr
+    from llzlab_tpu_torch.ops.fir import block2_block
+    from llzlab_tpu_torch.parallel.mesh import shard
+
+    def run(fn):
+        mesh1.fork()
+        out = fn()
+        mesh1.join()
+        hr.check_exchanges(mesh1)
+        return out
+
+    def counted(fn):
+        for w in wrappers.values():
+            w.launches = 0
+            if hasattr(w, "cross_host_launches"):
+                w.cross_host_launches = 0
+        out = run(fn)
+        return out, {n: (w.launches, getattr(w, "cross_host_launches", 0))
+                     for n, w in wrappers.items()}
+
+    B3, B4 = "halo_ring", "halo_fir_fused"
+    n = len(mesh1)
+    for h in (chans["block2"].h_rs, chans["block2"].h_fir,
+              chans["fused"].h_fir):
+        for carry in (None, torch.randn((x.shape[0], h), generator=gen,
+                                        device=dev)):
+            normal = run(lambda: hr.left_halo_ring_cuda(
+                parts1, h, mesh1, first_shard_value=carry))
+            plain = run(lambda: hr.left_halo_ring_plain(
+                parts1, h, mesh1, first_shard_value=carry))
+            got, k = counted(lambda: hr.left_halo_ring_cuda(
+                parts1, h, mesh1, first_shard_value=carry, _net=True))
+            torch.cuda.synchronize(dev)
+            if not all(torch.equal(a, b) and torch.equal(a, c)
+                       for a, b, c in zip(got, normal, plain)):
+                fail(f"B3 NET edges h={h}: != the normal launch / the plain "
+                     f"version")
+            if k[B3] != (n, n) or sum(v[0] for v in k.values()) != n:
+                fail(f"B3 NET edges h={h}: launches (all, across a NET "
+                     f"edge) {k}, expected {n} of B3 alone, all across")
+            by_path[B3]["phase11 NET edges on one card"] = by_path[B3].get(
+                "phase11 NET edges on one card", 0) + n
+    log(f"[phase11] B3 with every edge NET, {n} ranks of {dev} each "
+        f"launched alone (the halo through a device copy on each receiving "
+        f"rank's transfer stream, the epoch published by a kernel): h = 63, "
+        f"1024, 2048 with and without a carry == the normal launch == plain "
+        f"version bitwise, {n} launches an exchange, each across a NET edge")
+    del got, normal, plain
+
+    taps = chans["block2"].fir_taps
+    block = block2_block(len(taps))
+    t_loc = parts1[0].shape[1]
+    stream = x[:CZ_FUSED_CHANNELS].contiguous()
+    parts = shard(stream, mesh1)
+    for mode in MODES:
+        carry = None
+        for epoch in (1, 2, 3):
+            normal = run(lambda: hf.block2_fir_halo_fused_cuda(
+                parts, taps, mesh1, first_shard_value=carry, mode=mode))
+            got, k = counted(lambda: hf.block2_fir_halo_fused_cuda(
+                parts, taps, mesh1, first_shard_value=carry, mode=mode,
+                _net=True))
+            lead = (torch.zeros((CZ_FUSED_CHANNELS, block), device=dev)
+                    if carry is None else carry)
+            ref64 = bf.block2_fir_plain(
+                torch.cat([lead, stream], -1).double(), taps, block,
+                "highest")
+            torch.cuda.synchronize(dev)
+            if not all(torch.equal(a, b) for a, b in zip(got, normal)):
+                fail(f"B4 NET edges {mode} epoch {epoch}: != the normal "
+                     f"launch bitwise")
+            snr = device_snr_db(ref64, torch.cat(got, -1))
+            if not snr >= KERNEL_FLOOR_DB[mode]:
+                fail(f"B4 NET edges {mode}: {snr:.1f} dB against the plain "
+                     f"version in float64 (floor {KERNEL_FLOOR_DB[mode]})")
+            if k[B4] != (n, n) or sum(v[0] for v in k.values()) != n:
+                fail(f"B4 NET edges {mode}: launches {k}, expected {n} of "
+                     f"B4 alone, all across a NET edge")
+            by_path[B4]["phase11 NET edges on one card"] = by_path[B4].get(
+                "phase11 NET edges on one card", 0) + n
+            log(f"[phase11] B4 {mode} with every edge NET, {n} ranks of "
+                f"{dev}, {CZ_FUSED_CHANNELS} x {t_loc} a rank, epoch "
+                f"{epoch}: == the normal launch bitwise, {snr:.1f} dB "
+                f"against plain f64 (floor {KERNEL_FLOOR_DB[mode]})")
+            carry = stream[:, -block:].contiguous()
+            del got, normal, ref64
+    net_ms = {}
+    h = chans["fused"].h_fir
+    for name, what, fn in (
+            (B3, f"({x.shape[0]}, {h})", lambda net: hr.left_halo_ring_cuda(
+                parts1, h, mesh1, _net=net)),
+            (B4, f"{CZ_FUSED_CHANNELS} x {t_loc} a rank",
+             lambda net: hf.block2_fir_halo_fused_cuda(
+                 parts, taps, mesh1, mode="highest", _net=net))):
+        def timed(net):
+            mesh1.fork()
+            fn(net)
+            mesh1.join()
+        ms = cuda_ms(lambda: timed(True), iters=10)
+        normal_ms = cuda_ms(lambda: timed(False), iters=10)
+        hr.check_exchanges(mesh1)
+        net_ms[name] = {"ms": ms, "normal_ms": normal_ms}
+        log(f"[time] phase11 {name} highest {what} on {n} ranks of {dev}, "
+            f"every edge NET: {ms:.3f} ms, the normal launch "
+            f"{normal_ms:.3f} ms; on {smi}")
+    del parts, stream
+    torch.cuda.empty_cache()
+    return net_ms
+
+
+def cross_card_digests(dev) -> dict:
+    """Fingerprints (``halo_ipc_worker_torch.digest``) of what every kind
+    of cross-card edge of B3 and B4 gives, from seeded inputs on up to four
+    cards: B3 at ``(1024, 2048)`` on ``[0, 0, 1, 1]`` and a rank a card,
+    B4 a rank a card at 256 x 327 680 at both precisions, and two
+    super-blocks of the channelizer's fused ``rdma`` (1024 channels) and
+    block2 ``rdma_fused`` (256) steps a rank a card.  Phase 11 runs it in
+    this process and in one started under PyTorch's expandable segments,
+    and holds the two bitwise."""
+    import torch
+
+    from llzlab_tpu_torch import Channelizer
+    from llzlab_tpu_torch.kernels import halo_fir_fused as hf
+    from llzlab_tpu_torch.kernels import halo_ring as hr
+    from llzlab_tpu_torch.parallel.mesh import TIME_AXIS, DspMesh, shard
+    from scripts import halo_ipc_worker_torch as hw
+
+    count = min(torch.cuda.device_count(), CZ_RANKS)
+    ch = {m: Channelizer(fir_method=m, device=dev)
+          for m in ("fused", "block2")}
+    t_loc = ch["fused"].block_multiple()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((CZ_CHANNELS, count * t_loc), generator=gen, device=dev)
+    out = {}
+
+    def mesh_of(layout):
+        return DspMesh([torch.device("cuda", i) for i in layout],
+                       (TIME_AXIS,))
+
+    def on(mesh, fn):
+        mesh.fork()
+        got = fn()
+        mesh.join()
+        hr.check_exchanges(mesh)
+        return got
+
+    for layout in ([0, 0, 1, 1], list(range(count))):
+        mesh = mesh_of(layout)
+        xs = x[:, :len(layout) * (x.shape[1] // len(layout))]
+        got = on(mesh, lambda: hr.left_halo_ring(
+            shard(xs, mesh), ch["fused"].h_fir, mesh))
+        out[f"B3 {layout}"] = hw.digest(torch.cat([g.to(dev) for g in got]))
+    mesh = mesh_of(range(count))
+    parts = shard(x[:CZ_FUSED_CHANNELS].contiguous(), mesh)
+    for mode in MODES:
+        got = on(mesh, lambda: hf.block2_fir_halo_fused(
+            parts, ch["block2"].fir_taps, mesh, mode=mode))
+        out[f"B4 {mode}"] = hw.digest(torch.cat([g.to(dev) for g in got],
+                                                -1))
+    with matmul_precision("highest"):
+        for m, halo, c in (("fused", "rdma", CZ_CHANNELS),
+                           ("block2", "rdma_fused", CZ_FUSED_CHANNELS)):
+            step = ch[m].sharded_step(mesh, halo=halo)
+            st = ch[m].init_state(c)
+            xp = shard(x[:c].contiguous(), mesh)
+            for i in range(2):
+                spec, st = step(xp, st)
+                hr.check_exchanges(mesh)
+                out[f"{m} {halo} step {i}"] = hw.digest(torch.cat(
+                    [s.to(dev) for s in spec], 1))
+            out[f"{m} {halo} state"] = [hw.digest(v) for v in st]
+    torch.cuda.synchronize()
+    return out
 
 
 def process_paths(dev, smi, wrappers):
@@ -616,9 +847,12 @@ def process_paths(dev, smi, wrappers):
     and each process's state bitwise the same steps on one process's mesh
     over the same cards, traffic equal to ``comm_bytes(..., procs=n)``,
     the steps timed beside ``ppermute``; B3 and B4 timed; config 1 through
-    ``fir_filter_tap_parallel`` on 2 processes, bitwise.  Returns
-    ``({kernel: {path: launches}}, {kernel: {what: ms}})``.  Raises on any
-    failure."""
+    ``fir_filter_tap_parallel`` on 2 processes, bitwise.  The same again
+    with each process a host of its own (the ``hosts`` mode: every edge a
+    ``NET`` edge, NCCL held to its network transport, which the log
+    names), bitwise the same reference.  Returns ``({kernel: {path:
+    launches}}, {kernel: {what: ms}, "nccl_transport": [...]})``.  Raises
+    on any failure."""
     import tempfile
 
     import torch
@@ -637,9 +871,10 @@ def process_paths(dev, smi, wrappers):
     def fail(msg):
         raise RuntimeError(f"phase 12 {msg}")
 
-    def launches(results, expect):
+    def launches(results, expect, suffix=""):
         """Sum each path's launches over the processes; each kernel of
-        ``expect(path)`` launched, across processes too, and no other."""
+        ``expect(path)`` launched, across processes (or hosts) too, and no
+        other; ``by_path``'s key is the path and ``suffix``."""
         for path in results[0]["paths"]:
             got = {k: [sum(r["paths"][path][k][i] for r in results)
                        for i in (0, 1)] for k in results[0]["paths"][path]}
@@ -650,9 +885,9 @@ def process_paths(dev, smi, wrappers):
                      f"nonzero exactly on {sorted(want)}")
             for k, (n, _) in got.items():
                 if n:
-                    by_path[k][f"phase12 {path}"] = n
-            log(f"[phase12] {path}: launches (all, across processes) "
-                f"{got}")
+                    by_path[k][f"phase12 {path}{suffix}"] = n
+            log(f"[phase12] {path}{suffix}: launches (all, across "
+                f"{'hosts' if suffix else 'processes'}) {got}")
 
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -685,58 +920,80 @@ def process_paths(dev, smi, wrappers):
         if n > count:
             log(f"[phase12] {n} processes a card: {count} cards, skipped")
             continue
-        torch.cuda.empty_cache()
-        with tempfile.TemporaryDirectory() as tmp:
-            res = hw.launch("cards", n, os.path.join(tmp, "cards"))
-        launches(res, lambda path: {"halo_ring"} if " rdma " in path
-                 else {"halo_ring", "halo_fir_fused"} if "rdma_fused" in
-                 path else set())
         cards = [torch.device("cuda", i) for i in range(n)]
         mesh = DspMesh(cards, (TIME_AXIS,))
+        want = {}
         with matmul_precision("highest"):
             for method, halo, channels in hw.CZ_PATHS:
                 path = (f"config 5 {method} {halo} {channels}ch 1x{n} "
                         f"processes")
-                want = hw.cz_steps(Channelizer(fir_method=method, device=dev),
-                                   mesh, channels, hw.CZ_T_LOC, halo)
+                want[path] = hw.cz_steps(
+                    Channelizer(fir_method=method, device=dev), mesh,
+                    channels, hw.CZ_T_LOC, halo)
                 hr.check_exchanges(mesh)
-                for r in res:
-                    for k, v in r["digests"][path].items():
-                        if want[k] != v:
-                            fail(f"{path}: process {r['process']} {k} != "
-                                 f"the same steps of one process's mesh "
-                                 f"over {n} cards")
-                    moved, model = r["traffic"][path]
-                    if moved != model:
-                        fail(f"{path}: traffic {moved} B != model {model} B")
                 torch.cuda.empty_cache()
-                log(f"[phase12] {path}: 2 super-blocks of {channels} x "
-                    f"{hw.CZ_T_LOC} a rank and each process's state == the "
-                    f"same steps of one process over {n} cards bitwise; "
-                    f"traffic {res[0]['traffic'][path][0]} B == model")
             if n == 2:
                 xs, taps = hw.tap_inputs()
                 path = f"config 1 fir_filter_tap_parallel 1x{n} processes"
-                want = fir_filter_tap_parallel(
+                got = fir_filter_tap_parallel(
                     torch.from_numpy(xs), taps,
                     make_dsp_mesh(1, n, devices=cards))
+                want[path] = {f"rank{r}": hw.digest(v)
+                              for r, v in enumerate(got)}
+                del got
+        del mesh
+        torch.cuda.empty_cache()
+        for mode, kind, where in (("cards", hr.PROCESS, "processes"),
+                                  ("hosts", hr.NET, "hosts")):
+            with tempfile.TemporaryDirectory() as tmp:
+                res = hw.launch(mode, n, os.path.join(tmp, mode))
+            launches(res, lambda path: {"halo_ring"} if " rdma " in path
+                     else {"halo_ring", "halo_fir_fused"} if "rdma_fused" in
+                     path else set(), " as hosts" if mode == "hosts" else "")
+            for r in res:
+                if r["kinds"] != [kind] * (n - 1):
+                    fail(f"{mode} mode on {n} processes: process "
+                         f"{r['process']} planned its edges {r['kinds']}, "
+                         f"not {kind}")
+            for path, ref in want.items():
                 for r in res:
                     for k, v in r["digests"][path].items():
-                        if hw.digest(want[int(k[4:])]) != v:
-                            fail(f"{path}: process {r['process']} {k} != "
-                                 f"one process's mesh over {n} cards")
-                log(f"[phase12] {path}: each rank's replica == one "
-                    f"process's mesh over {n} cards bitwise")
-        r0 = res[0]
-        steps = ", ".join(f"{p.split(' 1x')[0][9:]} {ms:.3f}"
-                          for p, ms in r0["step_ms"].items())
-        log(f"[time] phase12 config 5 a step, {n} processes a card "
-            f"(1 x {n}, {hw.CZ_T_LOC} a rank; the slowest process's CUDA "
-            f"events): {steps} ms; B3 (1024, 2048) {r0['b3_ms']:.3f} ms, B4 "
-            f"highest 256 x {hw.CZ_T_LOC} a rank {r0['b4_ms']:.3f} ms; on "
-            f"{smi}")
-        across["halo_ring"][f"{n} processes a card"] = r0["b3_ms"]
-        across["halo_fir_fused"][f"{n} processes a card"] = r0["b4_ms"]
+                        if ref[k] != v:
+                            fail(f"{path} ({mode}): process {r['process']} "
+                                 f"{k} != the same steps of one process's "
+                                 f"mesh over {n} cards")
+                    if path in r["traffic"]:
+                        moved, model = r["traffic"][path]
+                        if moved != model:
+                            fail(f"{path} ({mode}): traffic {moved} B != "
+                                 f"model {model} B")
+                log(f"[phase12] {path}, a process a card as {n} {where} "
+                    f"(edges {kind}): "
+                    + (f"2 super-blocks of {path.split()[4][:-2]} x "
+                       f"{hw.CZ_T_LOC} a rank and each process's state == "
+                       f"the same steps of one process over {n} cards "
+                       f"bitwise; traffic {res[0]['traffic'][path][0]} B == "
+                       f"model" if path in res[0]["traffic"] else
+                       "each rank's replica == one process's mesh over "
+                       f"{n} cards bitwise"))
+            via = sorted({v for r in res for v in r.get("nccl_transport",
+                                                        [])})
+            r0 = res[0]
+            steps = ", ".join(f"{p.split(' 1x')[0][9:]} {ms:.3f}"
+                              for p, ms in r0["step_ms"].items())
+            log(f"[time] phase12 config 5 a step, {n} processes a card as "
+                f"{n} {where} (1 x {n}, {hw.CZ_T_LOC} a rank; the slowest "
+                f"process's CUDA events"
+                + (f"; NCCL via {', '.join(via)}" if via else "")
+                + f"): {steps} ms; B3 (1024, 2048) {r0['b3_ms']:.3f} ms, "
+                f"B4 highest 256 x {hw.CZ_T_LOC} a rank {r0['b4_ms']:.3f} "
+                f"ms; on {smi}")
+            label = (f"{n} processes a card" if mode == "cards"
+                     else f"{n} hosts, a process a card")
+            across["halo_ring"][label] = r0["b3_ms"]
+            across["halo_fir_fused"][label] = r0["b4_ms"]
+            if via:
+                across["nccl_transport"] = via
     return by_path, across
 
 
@@ -2405,6 +2662,11 @@ def main() -> int:
 
     # ---- phase 1: device and build ------------------------------------
     dev = require_cuda()
+    if sys.argv[1:2] == ["--cross-card-digests"]:
+        # phase 11's process under PyTorch's expandable segments
+        with open(sys.argv[2], "w") as f:
+            json.dump(cross_card_digests(dev), f)
+        return 0
     kind = torch.cuda.get_device_name(dev)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2440,10 +2702,10 @@ def main() -> int:
         # phase 11 alone (a rehearsal on several cards), without the
         # kernels line of a whole run
         t0 = time.perf_counter()
-        by_path, across = multicard_paths(dev, smi, wrappers)
+        by_path, across, net = multicard_paths(dev, smi, wrappers)
         log(f"[phase11] all paths in {time.perf_counter() - t0:.1f} s; "
             f"launches by path {json.dumps(by_path)}; across cards "
-            f"{json.dumps(across)}")
+            f"{json.dumps(across)}; NET edges on one card {json.dumps(net)}")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
@@ -3106,7 +3368,7 @@ def main() -> int:
     log(f"[phase10] all paths in {time.perf_counter() - t0:.1f} s")
     # ---- phase 11: several cards (on one, B3's protocol alone) -----------
     t0 = time.perf_counter()
-    paths11, across = multicard_paths(dev, smi, wrappers)
+    paths11, across, net11 = multicard_paths(dev, smi, wrappers)
     for name, paths in paths11.items():
         by_path[name].update(paths)
         launches[name] += sum(paths.values())
@@ -3148,6 +3410,12 @@ def main() -> int:
             entry["ms_across_processes"] = across12[name][
                 "2 processes of one card"]
             entry["ms_across_processes_by_layout"] = across12[name]
+            # a process a card as two hosts (NET edges through NCCL):
+            # needs two cards, else None
+            entry["ms_across_hosts"] = across12[name].get(
+                "2 hosts, a process a card")
+        if name in net11:  # phase 11: every edge NET, ranks of one card
+            entry["ms_net_edges_one_card"] = net11[name]["ms"]
         if (name, "high") in times:
             entry["ms_high"], entry["plain_ms_high"] = \
                 times[(name, "high")][:2]

@@ -266,7 +266,9 @@ class Channelizer:
         still goes through B3).  The kernels need a 1-D ``(time,)`` mesh
         (``mesh.row(0)`` of a global ``(1, n)`` mesh), on one card or
         several (peer access between them), in one process or in several
-        of one host (through CUDA IPC; an edge between hosts raises).
+        (through CUDA IPC within a host; between hosts the tails travel
+        through NCCL and the kernels keep their wait, which needs a NCCL
+        process group).
         Across processes every process must call the step the same number
         of times (``kernels/halo_ring.py``).  On a CPU mesh their plain
         versions run.

@@ -32,6 +32,20 @@
 // (zeroed, so epoch 1 passes at once).  A send whose ack never comes writes
 // -epoch into its error word.  This is the port's form of the TPU kernel's
 // send / receive semaphores.
+//
+// Between two hosts (a NET edge) no kernel can store into the receiver's
+// memory: a kernel reaches its own card, a peer card and memory opened
+// through CUDA IPC, all within one host.  So the receiving half alone stays
+// in the kernel.  The sender's tails go out by NCCL's point-to-point send,
+// which the host queues before the epoch's kernels launch (from the input,
+// so that no shard waits for its left neighbour's kernel); the receiving
+// process receives them into its receive buffer on a transfer stream, and
+// then a one-thread kernel (halo_net_publish, halo_ring.cu) fences and
+// publishes the epoch in the flag with st.release.sys.  The receiving
+// kernel waits for the flag and reads the buffer exactly as above; the
+// sending kernel gets no neighbour buffer and stores nothing.  Back-pressure
+// is the transfer stream's: it waits for the receiving shard's launch of
+// the previous epoch before it receives, so no ack word is needed.
 
 #pragma once
 

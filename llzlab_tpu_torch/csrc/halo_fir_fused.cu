@@ -53,6 +53,18 @@
 // an H100 80GB HBM3 (132 SMs) with 1024 taps: 4 blocks an SM at "high" (54
 // KB of shared memory, 64 registers a thread; 528 blocks), 8 at "highest"
 // (12 KB, 32 registers; 1056 blocks).
+// A neighbour on another host (a NET edge): the senders store nothing
+// (nbr_buf is null; NCCL carries the tail, queued by the host before this
+// launch), and the waiters wait for the flag that the receiving process's
+// transfer stream publishes once NCCL's receive has landed.  That receive
+// is a kernel too, and needs an SM while the waiters spin.  It always finds
+// one: the host queues it before this launch, the interior blocks end
+// without waiting for anything, and the waiters, at most max_wait blocks of
+// at most MAX_CARD_RANKS - 1 shards, never fill the card (the test above);
+// so at the latest when the interior is done, the receive and the one-thread
+// publish kernel run beside the spinning waiters.  At "high", where the grid
+// is what the card holds at once, that latest case is the usual one unless
+// the receive was placed first.
 // A wait still has its time limit and error word.  A neighbour in another
 // process (buffers opened through CUDA IPC) adds the acknowledgement of
 // halo_exchange.cuh: the senders wait for the ack of the previous epoch

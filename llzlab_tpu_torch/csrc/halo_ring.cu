@@ -31,6 +31,11 @@
 //                    (halo_ipc_* below) and the receiver's acknowledgement
 //                    (halo_ack) in place of the stream event that orders the
 //                    next send within a process.
+//   cross-host (NET) the receive half alone: the shard waits for its flag
+//                    and copies its buffer out, which NCCL filled and
+//                    halo_net_publish (below) flagged (halo_exchange.cuh);
+//                    the launch that holds the sending shard gets no
+//                    neighbour buffer and stores nothing.
 //
 // The send precedes the wait in every block, so a card that holds a single
 // shard (whose blocks do both) cannot wait for a sender queued behind it.
@@ -119,6 +124,25 @@ extern "C" int halo_ring_launch(const HaloRank* ranks, int n, int c, int h,
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+__global__ void halo_net_publish_kernel(int* flag, int epoch) {
+  __threadfence_system();
+  halo_flag_store(flag, epoch);
+}
+
+}  // namespace
+
+// Publish `epoch` in the flag of a NET edge's receive buffer, behind what
+// `stream` was given before (the transfer that filled the buffer): one
+// thread, a system fence, st.release.sys.  The receiving shard's kernel
+// (B3 or B4) waits for it with ld.acquire.sys, as for a flag that another
+// card's kernel set.  Returns cudaGetLastError() after the launch.
+extern "C" int halo_net_publish(int* flag, int epoch, void* stream) {
+  halo_net_publish_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(flag, epoch);
+  return (int)cudaGetLastError();
+}
+
 // Let kernels of card `dev` load from and store into memory of card `peer`
 // (cudaDeviceEnablePeerAccess from dev's context; one direction).  The
 // current device is left as it was.  Returns 0 when this call enabled the
@@ -143,11 +167,14 @@ extern "C" int halo_enable_peer_access(int dev, int peer) {
   return back != cudaSuccess ? (int)back : rc;
 }
 
-// Exchange state that another process reaches: memory of its own allocation
-// (a block of PyTorch's caching allocator cannot be exported alone:
-// cudaIpcGetMemHandle hands out the whole segment).  Each call makes `dev`
-// current and restores the caller's device; each returns 0 or the CUDA error
-// code.
+// Exchange state that another card or process reaches: memory of its own
+// allocation (a block of PyTorch's caching allocator cannot be exported
+// alone: cudaIpcGetMemHandle hands out the whole segment; and under
+// PyTorch's expandable segments a peer card reaches the allocator's memory
+// only after cuMemSetAccess, where cudaMalloc memory needs peer access
+// alone).  Every receive buffer and flag of a protocol edge, within a
+// process too, lives here.  Each call makes `dev` current and restores the
+// caller's device; each returns 0 or the CUDA error code.
 
 namespace {
 

@@ -16,10 +16,13 @@ landed.
   kernel, once per rank of this process in rank order on the rank's stream
   (:func:`block2_fir_halo_fused_cuda`, which counts its launches in
   ``.launches``); a CPU mesh runs the plain version.  Nothing falls back.
-  The mesh's ranks may live in several processes of one host (None in the
-  list of parts for the ranks of other processes): an edge between two
-  processes runs B3's protocol through CUDA IPC, with the receiver's
-  acknowledgement (``kernels/halo_ring.py``).
+  The mesh's ranks may live in several processes (None in the list of
+  parts for the ranks of other processes): an edge between two processes
+  of one host runs B3's protocol through CUDA IPC, with the receiver's
+  acknowledgement; an edge between two hosts (``NET``) takes the tail
+  through NCCL, queued by the host before the launch, and the waiters
+  wait for its flag as on any other edge, while the rest of the output is
+  computed (``kernels/halo_ring.py``).
 * :func:`block2_fir_halo_fused_plain` is the plain PyTorch version:
   ``left_halo``, then ``block2_fir_plain`` on ``[zeros | halo | x_local]``.
 
@@ -191,14 +194,19 @@ def blocks_per_sm(ntaps: int, mode: str) -> int:
 def block2_fir_halo_fused_cuda(parts: Sequence[Optional[torch.Tensor]],
                                taps, mesh: DspMesh, *,
                                first_shard_value: Optional[torch.Tensor]
-                               = None, mode: str = "high"
+                               = None, mode: str = "high",
+                               _net: bool = False
                                ) -> List[Optional[torch.Tensor]]:
     """Launch kernel B4 once per rank of this process, in rank order, each
     on its rank's stream.  ``parts[r]``: contiguous ``(C, T_loc)`` f32 on
     rank ``r``'s device, None for a rank of another process (whose output
     is None here).  ``.launches`` counts the launches,
     ``.cross_card_launches`` those with a neighbour on another card of this
-    process, ``.cross_process_launches`` in another process."""
+    process, ``.cross_process_launches`` in another process,
+    ``.cross_host_launches`` on another host.  ``_net`` (for the check of
+    the ``NET`` branch on one card, not an entry point): on a mesh of one
+    process every edge is a ``NET`` edge whose transport is a device copy
+    (``HaloExchange(net=True)``)."""
     taps, block, h = _check(parts, taps, mesh, first_shard_value, mode)
     b, t = local_block(parts).shape
     local = [r for r in range(len(parts)) if mesh.local(r)]
@@ -212,9 +220,9 @@ def block2_fir_halo_fused_cuda(parts: Sequence[Optional[torch.Tensor]],
                              f"{part.dtype} strides {part.stride()} at rank "
                              f"{r}")
     lib = library()
-    ex = _hr.HaloExchange.of(mesh, b, h)
+    ex = _hr.HaloExchange.of(mesh, b, h, _net)
     kinds = ex.kinds
-    epoch = ex.begin()
+    epoch = ex.begin(parts)
     high = mode == "high"
     none = _hr.Edge(None, None, None)
     out: List[Optional[torch.Tensor]] = [None] * len(parts)
@@ -250,6 +258,7 @@ def block2_fir_halo_fused_cuda(parts: Sequence[Optional[torch.Tensor]],
 block2_fir_halo_fused_cuda.launches = 0
 block2_fir_halo_fused_cuda.cross_card_launches = 0
 block2_fir_halo_fused_cuda.cross_process_launches = 0
+block2_fir_halo_fused_cuda.cross_host_launches = 0
 
 
 def block2_fir_halo_fused(parts: Sequence[Optional[torch.Tensor]], taps,
@@ -258,8 +267,8 @@ def block2_fir_halo_fused(parts: Sequence[Optional[torch.Tensor]], taps,
                           mode: str = "high"
                           ) -> List[Optional[torch.Tensor]]:
     """Halo exchange + block2 FIR on a 1-D time mesh (its ranks in one
-    process or several of one host): kernel B4 on a CUDA mesh, the plain
-    version on a CPU mesh.  Orders rank against rank; the
+    process or several, of one host or of several): kernel B4 on a CUDA
+    mesh, the plain version on a CPU mesh.  Orders rank against rank; the
     caller orders the mesh against its own stream (``mesh.fork`` /
     ``mesh.join``)."""
     _hr.check_time_mesh(mesh, parts)

@@ -19,7 +19,7 @@ the wrapper does as little as it can per call: it groups the mesh's ranks
 by process and card (:func:`edge_plan`) and launches once per run of this
 process's ranks that share a card, on the stream of the run's first rank,
 with one ``torch.empty`` for the run's halos.  Each edge ``r − 1 → r`` is
-one of three kinds:
+one of four kinds:
 
 * ``DIRECT`` (one process, one card): the kernel copies the left
   neighbour's row tails straight into the halo: no receive buffer, no
@@ -32,29 +32,65 @@ one of three kinds:
   behind the receiver's launch of call ``e``, so that it never lands on a
   halo that is still being read.
 * ``PROCESS`` (two processes of one host, on one card or two): the same
-  protocol through CUDA IPC.  The receive buffer, flag and the sender's
-  ack word have their own ``cudaMalloc`` (a block of PyTorch's caching
-  allocator cannot be exported alone), are exported with
-  ``cudaIpcGetMemHandle`` and opened by the other process with
-  ``cudaIpcOpenMemHandle``; in place of the event, the receiver
-  acknowledges each epoch into the ack word once it has read the buffer,
-  and the sender waits for the previous epoch's ack before it stores.
+  protocol through CUDA IPC.  The receive buffer and flag are exported
+  with ``cudaIpcGetMemHandle`` and opened by the other process with
+  ``cudaIpcOpenMemHandle``, and so is the sender's ack word; in place of
+  the event, the receiver acknowledges each epoch into the ack word once
+  it has read the buffer, and the sender waits for the previous epoch's
+  ack before it stores.
+* ``NET`` (two processes on two hosts): a kernel can store only into
+  memory of its own host (its card, a peer card, another process's memory
+  opened through CUDA IPC), and the port builds on no library that lets a
+  kernel start a transfer to another host (NVSHMEM, NCCL's device API).
+  So the bytes travel through
+  the process group: the sender's tails (``x[:, -h:]``, taken from the
+  input on the sending rank's stream) go out by NCCL's point-to-point
+  send, which the host queues before any kernel of the epoch launches,
+  and the receiving process receives them into its receive buffer on a
+  transfer stream of its own, then publishes the epoch in the flag with a
+  one-thread kernel (``st.release.sys``).  The receiving kernel keeps
+  what the TPU kernel does with the halo: B3's receiver waits on its flag
+  and copies the buffer out, B4's waiters compute y-block 0 from it after
+  the rest of the output was computed while it travelled.  The sending
+  kernel stores nothing remotely.  This is the port's form of the TPU
+  kernel's ``make_async_remote_copy`` and its receive semaphore, with the
+  copy's start moved from the kernel's first grid step to the host just
+  before the launch (from the input, so that no rank waits for its left
+  neighbour's kernel and the ring never runs in series).  The transfer
+  stream first waits for the receiving rank's launch of the previous
+  epoch (back-pressure within the process, as on ``PROTOCOL`` edges).  The
+  sends and receives of an epoch are one group call
+  (``batch_isend_irecv``), posted in edge order by every process.
+
+The receive buffer and flag of every edge that is not ``DIRECT`` (and the
+ack word of a ``PROCESS`` edge) have their own ``cudaMalloc``, not a block
+of PyTorch's caching allocator: a block cannot be exported alone, and
+under PyTorch's expandable segments a peer card reaches the allocator's
+memory only after ``cuMemSetAccess``.  So the kernels between cards run
+under ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` as without it.
 
 :class:`HaloExchange` owns that state, one per ``(mesh, C, h)``, kept in
 ``mesh.cache`` and shared with kernel B4 (which runs the protocol on every
 edge).  Edges within a process are made when first needed.  Edges across
 processes are made when the exchange is made, by a handshake that every
 process joins at the same point, since every process walks the same
-exchanges in the same order: each exports the handles of its side, all
-are gathered with ``torch.distributed.all_gather_object`` (gloo or NCCL),
-and each opens the other side's.  The processes' epochs agree only if
-every process calls the halo functions of the mesh the same number of
-times, with the same ``(C, h)``.  The state is closed and freed when the
-exchange goes (with the mesh's cache, or at exit); a process frees its
-side only after its peers are done with it (a caller that drops a mesh
-while other processes still run on it synchronizes and joins them
-first).  An edge between two hosts raises, naming ``halo="ppermute"``
-(CUDA IPC works within one host); so does a failed open.
+exchanges in the same order: each process's host name
+(:func:`host_name`) is gathered once a mesh (:func:`process_hosts`),
+which decides ``PROCESS`` or ``NET``; each process exports the handles of
+its side of the ``PROCESS`` edges, all are gathered with
+``torch.distributed.all_gather_object`` (gloo or NCCL), and each opens the
+other side's; each ``NET`` pair is warmed with one transfer, so that
+NCCL's connection setup never falls inside a kernel's wait.  A ``NET``
+edge needs a NCCL group (gloo carries host memory only, and the kernels
+stage nothing through the host): on another group every process raises,
+naming NCCL.  The processes' epochs agree only if every process calls the
+halo functions of the mesh the same number of times, with the same ``(C,
+h)``; the same order keeps the processes' group calls matched.  The state
+is closed and freed when the exchange goes (with the mesh's cache, or at
+exit); a process frees its side only after its peers are done with it (a
+caller that drops a mesh while other processes still run on it
+synchronizes and joins them first).  A failed open raises, naming
+``halo="ppermute"``; a failed send or receive raises from the group call.
 
 A receiver whose sender never comes gives up after ``WAIT_LIMIT_S`` and
 sets an error word in pinned host memory of its own process (a sender
@@ -71,18 +107,24 @@ ran on four H100s of one host joined by NVLink: 1-D meshes laid out ``[0,
 channelizer on 2 and 4 cards, each bitwise the same ranks on one card
 (``tests/test_torch_multicard.py``, ``chip_smoke.py`` phase 11); across
 processes, two processes on one card and a process a card, bitwise the
-same ranks in one process (``chip_smoke.py`` phase 12).
+same ranks in one process (``chip_smoke.py`` phase 12), and ``NET``
+edges between processes of one host with NCCL held to its network
+transport (``NCCL_P2P_DISABLE=1``, ``NCCL_SHM_DISABLE=1``), each process
+naming itself a host of its own (phase 12, the ``hosts`` mode of
+``scripts/halo_ipc_worker_torch.py``).  Two machines have not run it.
 ``left_halo_ring_cuda(..., _per_rank=True)`` launches each rank alone on
 its own stream, so that every edge runs the protocol, also between ranks
-of one card: phase 11 checks the protocol so on a machine with one card.
+of one card, and ``_net=True`` makes every edge of a mesh of one process
+a ``NET`` edge whose transport is a device copy on the transfer stream:
+phase 11 checks both branches so on a machine with one card.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
+import socket
 import weakref
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -93,9 +135,9 @@ from llzlab_tpu_torch.parallel.mesh import (TIME_AXIS, DspMesh, local_block,
 
 __all__ = ["left_halo_ring", "left_halo_ring_cuda", "left_halo_ring_plain",
            "HaloExchange", "check_exchanges", "edge_plan", "mesh_plan",
-           "check_same_host", "ranks_by_card", "same_card_edges",
-           "enable_peer_access", "WAIT_LIMIT_S", "DIRECT", "PROTOCOL",
-           "PROCESS"]
+           "host_name", "process_hosts", "check_net_group", "ranks_by_card",
+           "same_card_edges", "enable_peer_access", "WAIT_LIMIT_S",
+           "DIRECT", "PROTOCOL", "PROCESS", "NET"]
 
 #: how long a receiving kernel waits for its sender before it gives up
 WAIT_LIMIT_S = 4.0
@@ -103,9 +145,10 @@ WAIT_LIMIT_S = 4.0
 #: (MAX_RANKS in csrc/halo_ring.cu)
 HALO_MAX_RANKS = 16
 #: the kinds of edge r − 1 → r: both ranks on one card of this process (a
-#: direct copy), the send / wait protocol within a process, and across two
-#: processes (through CUDA IPC)
-DIRECT, PROTOCOL, PROCESS = "direct", "protocol", "process"
+#: direct copy), the send / wait protocol within a process, across two
+#: processes of one host (through CUDA IPC), and across two hosts (the
+#: bytes through NCCL, the wait in the kernel)
+DIRECT, PROTOCOL, PROCESS, NET = "direct", "protocol", "process", "net"
 #: bytes before the receive buffer in its own allocation: the flag and the
 #: receiver's count of reading blocks, an int each, padded
 _IPC_HEAD = 256
@@ -113,18 +156,28 @@ _IPC_HEAD = 256
 left_halo_ring_plain = left_halo
 
 
+def host_name() -> str:
+    """The name of this process's host: processes of one name share
+    memory through CUDA IPC, processes of two are joined by ``NET`` edges
+    (:func:`process_hosts` gathers it from every process)."""
+    return socket.gethostname()
+
+
 def edge_plan(places: Sequence[Tuple[Optional[int], torch.device]],
-              me: Optional[int] = None, per_rank: bool = False
+              me: Optional[int] = None, per_rank: bool = False,
+              hosts: Optional[Sequence[str]] = None
               ) -> Tuple[List[List[int]], List[str]]:
     """The launch plan of a 1-D time mesh from each rank's ``(process,
     device)``: the runs of consecutive ranks that process ``me`` launches
     (ranks of ``me`` that share a card; each rank alone with ``per_rank``),
     and the kind of each edge ``r − 1 → r`` (``r = 1 … n − 1``):
-    :data:`DIRECT`, :data:`PROTOCOL` or :data:`PROCESS`.  A process of None
-    is this one (``me`` None).  A ``(process, device)`` that comes back
-    after another one raises: the ranks of a card of one process must be
-    consecutive, as ``make_dsp_mesh`` and ``global_dsp_mesh`` deal them.  So
-    does a card of one process with more than ``HALO_MAX_RANKS`` ranks."""
+    :data:`DIRECT`, :data:`PROTOCOL`, :data:`PROCESS` or, where ``hosts``
+    (each rank's host name; None: one host) differ, :data:`NET`.  A
+    process of None is this one (``me`` None).  A ``(process, device)``
+    that comes back after another one raises: the ranks of a card of one
+    process must be consecutive, as ``make_dsp_mesh`` and
+    ``global_dsp_mesh`` deal them.  So does a card of one process with more
+    than ``HALO_MAX_RANKS`` ranks."""
     keys = [(p, torch.device(d)) for p, d in places]
     groups: List[List[int]] = []
     for r, key in enumerate(keys):
@@ -143,20 +196,47 @@ def edge_plan(places: Sequence[Tuple[Optional[int], torch.device]],
             raise ValueError(f"{len(g)} ranks on {keys[g[0]][1]}: one launch "
                              f"of the halo kernel serves at most "
                              f"{HALO_MAX_RANKS} ranks of a card")
-    kinds = [PROCESS if keys[r - 1][0] != keys[r][0]
-             else DIRECT if keys[r - 1] == keys[r] and not per_rank
-             else PROTOCOL for r in range(1, len(keys))]
+
+    def kind(r: int) -> str:
+        if keys[r - 1][0] != keys[r][0]:
+            return NET if hosts and hosts[r - 1] != hosts[r] else PROCESS
+        return DIRECT if keys[r - 1] == keys[r] and not per_rank \
+            else PROTOCOL
+
+    kinds = [kind(r) for r in range(1, len(keys))]
     runs = [g for g in groups if keys[g[0]][0] == me]
     if per_rank:
         runs = [[r] for g in runs for r in g]
     return runs, kinds
 
 
+def process_hosts(mesh: DspMesh) -> Optional[List[str]]:
+    """Each rank's host name on a mesh whose ranks live in several
+    processes: :func:`host_name` of every process, gathered over the
+    process group once a mesh (every process of the group calls this at
+    the same point, as it walks the same exchanges).  None for a mesh of
+    one process, or without a process group (no rank of another process
+    can run then)."""
+    import torch.distributed as dist
+
+    if not mesh.is_distributed or not dist.is_initialized():
+        return None
+    if "process_hosts" not in mesh.cache:
+        got: list = [None] * dist.get_world_size()
+        dist.all_gather_object(got, host_name())
+        me = dist.get_rank()
+        mesh.cache["process_hosts"] = [
+            got[me if rank.process is None else rank.process]
+            for rank in mesh.ranks]
+    return mesh.cache["process_hosts"]
+
+
 def mesh_plan(mesh: DspMesh, per_rank: bool = False
               ) -> Tuple[List[List[int]], List[str]]:
-    """:func:`edge_plan` of a mesh's ranks, for this process."""
+    """:func:`edge_plan` of a mesh's ranks and hosts, for this process."""
     return edge_plan([(rank.process if rank.remote else None, rank.device)
-                      for rank in mesh.ranks], None, per_rank)
+                      for rank in mesh.ranks], None, per_rank,
+                     process_hosts(mesh))
 
 
 def ranks_by_card(devices: Sequence[torch.device]) -> List[List[int]]:
@@ -172,31 +252,48 @@ def same_card_edges(devices: Sequence[torch.device]) -> List[bool]:
     return [k == DIRECT for k in edge_plan([(None, d) for d in devices])[1]]
 
 
-def check_same_host(hosts: Sequence[str],
-                    edges: Sequence[Tuple[int, int]]) -> None:
-    """Raise if an edge ``(process of r − 1, process of r)`` between two
-    processes joins two hosts (``hosts``: each process's host name): CUDA
-    IPC maps memory within one host."""
-    far = sorted({(a, b) for a, b in edges if hosts[a] != hosts[b]})
-    if far:
+def check_net_group(kinds: Sequence[str]) -> None:
+    """Raise unless the process group that carries the ``NET`` edges among
+    ``kinds`` is NCCL's: gloo carries host memory only, and the halo
+    kernels stage nothing through the host."""
+    import torch.distributed as dist
+
+    net = [r for r, k in enumerate(kinds, start=1) if k == NET]
+    if not net:
+        return
+    backend = (str(dist.get_backend()) if dist.is_available()
+               and dist.is_initialized() else "no process group")
+    if "nccl" not in backend:
         raise RuntimeError(
-            f"the halo kernels cannot reach a rank on another host: edges "
-            f"between processes {far} join hosts "
-            f"{sorted({(hosts[a], hosts[b]) for a, b in far})}, and CUDA IPC "
-            f"maps memory within one host; use halo='ppermute' across hosts")
+            f"the halo kernels' edges {[(r - 1, r) for r in net]} join two "
+            f"hosts, and their bytes travel through NCCL's point-to-point "
+            f"sends; the process group is {backend!r}: initialise "
+            f"torch.distributed with NCCL (gloo carries host memory only, "
+            f"and the kernels stage nothing through the host)")
 
 
 class Edge(NamedTuple):
     """Pointers of one protocol edge ``r − 1 → r`` valid in this process
     (None where this process has no use for one): rank ``r``'s receive
     buffer and flag, rank ``r − 1``'s send counter, and across processes
-    the ack word of rank ``r − 1`` and rank ``r``'s count of reading
-    blocks."""
+    of one host the ack word of rank ``r − 1`` and rank ``r``'s count of
+    reading blocks."""
     buf: Optional[int]
     flag: Optional[int]
     counter: Optional[int]
     ack: Optional[int] = None
     rcount: Optional[int] = None
+
+
+class _Raw:
+    """A ``(c, h)`` float32 array of this module's own device memory, for
+    ``torch.as_tensor`` (CUDA's array interface): the receive buffer of a
+    ``NET`` edge, which the group call receives into."""
+
+    def __init__(self, ptr: int, shape: Tuple[int, int]):
+        self.__cuda_array_interface__ = {
+            "shape": shape, "typestr": "<f4", "data": (ptr, False),
+            "version": 2, "strides": None}
 
 
 def _release(owned: list, opened: list) -> None:
@@ -214,46 +311,72 @@ def _release(owned: list, opened: list) -> None:
 
 class HaloExchange:
     """Receive buffers, flags, counters and error words of one halo
-    exchange pattern ``(C, h)`` on a CUDA time mesh; across processes also
-    the ack words, in memory of their own shared through CUDA IPC, which
-    ``close()`` closes and frees (so does the exchange's collection, or the
-    interpreter's exit)."""
+    exchange pattern ``(C, h)`` on a CUDA time mesh, in memory of their
+    own; across processes of one host also the ack words, shared through
+    CUDA IPC; across hosts the transfer streams.  ``close()`` closes and
+    frees them (so does the exchange's collection, or the interpreter's
+    exit).  ``net``: every edge is a ``NET`` edge whose transport is a
+    device copy (a mesh of one process; the check of that branch on one
+    card)."""
 
-    def __init__(self, mesh: DspMesh, c: int, h: int):
+    def __init__(self, mesh: DspMesh, c: int, h: int, net: bool = False):
         n = len(mesh)
-        self.mesh, self.c, self.h = mesh, c, h
+        self.mesh, self.c, self.h, self.net = mesh, c, h, net
         self.epoch = 0
-        self.kinds = mesh_plan(mesh)[1]
-        self.bufs: List[Optional[torch.Tensor]] = [None] * n
-        self.flags: List[Optional[torch.Tensor]] = [None] * n
+        self.kinds = [NET] * (n - 1) if net else mesh_plan(mesh)[1]
+        if net and mesh.is_distributed:
+            raise ValueError("net=True takes a mesh of one process")
+        if not net:
+            check_net_group(self.kinds)
+        self.edges: Dict[int, Edge] = {}
         self.counters: List[Optional[torch.Tensor]] = [None] * n
         # one word per rank, written by a kernel that gave up waiting
         self.err = torch.zeros(n, dtype=torch.int32).pin_memory()
         self._err_np = self.err.numpy()  # the same memory, cheaper to read
         # per rank: the event of its last launch on this exchange
         self._done: List[Optional[torch.cuda.Event]] = [None] * n
-        # edges across processes, made by the handshake
-        self._ipc: dict = {}
+        # NET edges with an end in this process: receive buffers as
+        # tensors, and the transfer stream of each receiving rank
+        self._net = [r for r, k in enumerate(self.kinds, start=1)
+                     if k == NET and (mesh.local(r - 1) or mesh.local(r))]
+        self._recv: Dict[int, torch.Tensor] = {}
+        self._xfer: Dict[int, torch.cuda.Stream] = {}
         self._owned: List[Tuple[int, int]] = []
         self._opened: List[Tuple[int, int]] = []
         self.close = weakref.finalize(self, _release, self._owned,
                                       self._opened)
-        if PROCESS in self.kinds:
+        if net:
+            lib = _build.load("halo_ring", _declare)
+            for r in self._net:
+                dev = mesh.ranks[r].device
+                self._receive_side(lib, r, dev)
+                self._xfer[r] = torch.cuda.Stream(dev)
+        elif PROCESS in self.kinds or NET in self.kinds:
             self._handshake()
 
     @classmethod
-    def of(cls, mesh: DspMesh, c: int, h: int) -> "HaloExchange":
-        key = ("halo_exchange", c, h)
+    def of(cls, mesh: DspMesh, c: int, h: int, net: bool = False
+           ) -> "HaloExchange":
+        key = ("halo_exchange", c, h) + (("net",) if net else ())
         if key not in mesh.cache:
-            mesh.cache[key] = cls(mesh, c, h)
+            mesh.cache[key] = cls(mesh, c, h, net)
         return mesh.cache[key]
+
+    def _receive_side(self, lib, r: int, dev: torch.device) -> int:
+        """Allocate rank ``r``'s receive buffer and flag (zeroed, in their
+        own allocation); on a ``NET`` edge also its tensor.  The base."""
+        base = self._alloc(lib, dev, _IPC_HEAD + 4 * self.c * self.h)
+        if self.kinds[r - 1] == NET:
+            self.edges[r] = Edge(base + _IPC_HEAD, base, None)
+            self._recv[r] = torch.as_tensor(
+                _Raw(base + _IPC_HEAD, (self.c, self.h)), device=dev)
+        return base
 
     def _handshake(self) -> None:
         """Make every edge across processes: allocate and export this
-        process's side, gather every process's handles, check that each
-        edge stays on one host, open the other side."""
-        import socket
-
+        process's side of the ``PROCESS`` edges, gather every process's
+        handles, open the other side; allocate the receive side of the
+        ``NET`` edges and warm each pair with one transfer."""
         import torch.distributed as dist
 
         from llzlab_tpu_torch.kernels import halo_fir_fused
@@ -270,23 +393,26 @@ class HaloExchange:
                 "handshake of the whole process group: it needs "
                 "torch.distributed initialised and ranks of the mesh in "
                 f"every one of its {world} processes")
-        size = 4 * self.c * self.h
-        own, mine, edges = {}, {}, []
+        own, mine = {}, {}
         for r, kind in enumerate(self.kinds, start=1):
+            src, dst = ranks[r - 1], ranks[r]
+            if kind == NET and not dst.remote:
+                self._receive_side(lib, r, dst.device)
             if kind != PROCESS:
                 continue
-            src, dst = ranks[r - 1], ranks[r]
-            edges.append((src.process, dst.process))
             # the receiver: buffer, flag and count; the sender: its ack word
-            for key, rank, nbytes in ((("recv", r), dst, _IPC_HEAD + size),
-                                      (("ack", r), src, _IPC_HEAD)):
-                if not rank.remote:
-                    own[key] = self._alloc(lib, rank.device, nbytes)
-                    mine[key] = self._export(lib, rank.device, own[key])
-        got: list = [None] * world
-        dist.all_gather_object(got, (socket.gethostname(), mine))
-        check_same_host([g[0] for g in got], edges)
-        theirs = {k: v for _, handles in got for k, v in handles.items()}
+            if not dst.remote:
+                own[("recv", r)] = self._receive_side(lib, r, dst.device)
+                mine[("recv", r)] = self._export(lib, dst.device,
+                                                 own[("recv", r)])
+            if not src.remote:
+                own[("ack", r)] = self._alloc(lib, src.device, _IPC_HEAD)
+                mine[("ack", r)] = self._export(lib, src.device,
+                                                own[("ack", r)])
+        if PROCESS in self.kinds:
+            got: list = [None] * world
+            dist.all_gather_object(got, mine)
+            theirs = {k: v for handles in got for k, v in handles.items()}
         for r, kind in enumerate(self.kinds, start=1):
             if kind != PROCESS:
                 continue
@@ -296,15 +422,87 @@ class HaloExchange:
                 self.counters[r - 1] = torch.zeros(1, dtype=torch.int32,
                                                    device=src.device)
                 torch.cuda.synchronize(src.device)
-                self._ipc[r] = Edge(base + _IPC_HEAD, base,
-                                    self.counters[r - 1].data_ptr(),
-                                    ack=own[("ack", r)])
+                self.edges[r] = Edge(base + _IPC_HEAD, base,
+                                     self.counters[r - 1].data_ptr(),
+                                     ack=own[("ack", r)])
             elif not dst.remote:
                 base = own[("recv", r)]
-                self._ipc[r] = Edge(base + _IPC_HEAD, base, None,
-                                    ack=self._open(lib, dst.device,
-                                                   theirs[("ack", r)]),
-                                    rcount=base + 4)
+                self.edges[r] = Edge(base + _IPC_HEAD, base, None,
+                                     ack=self._open(lib, dst.device,
+                                                    theirs[("ack", r)]),
+                                     rcount=base + 4)
+        if self._net:
+            devs = {ranks[r if self.mesh.local(r) else r - 1].device
+                    for r in self._net}
+            if len(devs) > 1:
+                raise ValueError(
+                    f"this process's ends of the edges across hosts lie on "
+                    f"{sorted(map(str, devs))}: one group call of NCCL "
+                    f"serves one card")
+            stream = torch.cuda.Stream(devs.pop())
+            self._xfer = dict.fromkeys(self._net, stream)
+            self._transfer(None, 0)  # NCCL connects each pair here
+            stream.synchronize()
+
+    def _transfer(self, parts, epoch: int) -> None:
+        """Queue epoch ``epoch``'s transfers of this process's ``NET``
+        edges, in edge order: the tails of each sending rank of this
+        process (``parts[r − 1][:, -h:]``, taken on its stream; zeros for
+        the warm-up, ``parts`` None), sent and received in one group call
+        on the transfer stream once the receiving rank's launch of the
+        previous epoch is done, then each receive's epoch published in its
+        flag.  ``net``: a device copy on each receiving rank's transfer
+        stream in place of the group call."""
+        ranks, c, h = self.mesh.ranks, self.c, self.h
+        lib = _build.load("halo_ring", _declare)
+        if self.net:
+            for r in self._net:
+                stream, src = self._xfer[r], parts[r - 1]
+                stream.wait_event(ranks[r - 1].mark())
+                if self._done[r] is not None:
+                    stream.wait_event(self._done[r])
+                with torch.cuda.device(ranks[r].device), \
+                        torch.cuda.stream(stream):
+                    self._recv[r].copy_(src.narrow(1, src.shape[1] - h, h))
+                    self._publish(lib, r, epoch, stream)
+            return
+        import torch.distributed as dist
+
+        stream = self._xfer[self._net[0]]
+        ops, sent = [], []
+        for r in self._net:
+            src, dst = ranks[r - 1], ranks[r]
+            if not src.remote:
+                with torch.cuda.device(src.device), \
+                        torch.cuda.stream(src.stream):
+                    tails = (torch.zeros((c, h), device=src.device)
+                             if parts is None else parts[r - 1].narrow(
+                                 1, parts[r - 1].shape[1] - h, h
+                             ).contiguous())
+                stream.wait_event(src.mark())
+                sent.append(tails)
+                ops.append(dist.P2POp(dist.isend, tails, dst.process))
+            if not dst.remote:
+                if self._done[r] is not None:
+                    stream.wait_event(self._done[r])
+                ops.append(dist.P2POp(dist.irecv, self._recv[r],
+                                      src.process))
+        with torch.cuda.device(stream.device), torch.cuda.stream(stream):
+            if c * h:
+                for work in dist.batch_isend_irecv(ops) or ():
+                    work.wait()  # the transfer stream waits for NCCL's
+            if epoch:
+                for r in self._net:
+                    if not ranks[r].remote:
+                        self._publish(lib, r, epoch, stream)
+        for tails in sent:  # their memory is not reused before the send
+            tails.record_stream(stream)
+
+    def _publish(self, lib, r: int, epoch: int,
+                 stream: torch.cuda.Stream) -> None:
+        _build.check(lib.halo_net_publish(self.edges[r].flag, epoch,
+                                          stream.cuda_stream),
+                     "halo_net_publish")
 
     def _alloc(self, lib, dev: torch.device, nbytes: int) -> int:
         ptr = ctypes.c_void_p()
@@ -335,21 +533,18 @@ class HaloExchange:
     def edge(self, r: int) -> Edge:
         """State of the protocol edge ``r − 1 → r``; within a process made
         at first use."""
-        if r in self._ipc:
-            return self._ipc[r]
-        if self.bufs[r] is None:
+        if r not in self.edges:
             src, dst = (self.mesh.ranks[q].device for q in (r - 1, r))
             if src != dst:
                 enable_peer_access(src, dst)
-            self.bufs[r] = torch.empty((self.c, self.h), dtype=torch.float32,
-                                       device=dst)
-            self.flags[r] = torch.zeros(1, dtype=torch.int32, device=dst)
+            base = self._receive_side(_build.load("halo_ring", _declare), r,
+                                      dst)
             self.counters[r - 1] = torch.zeros(1, dtype=torch.int32,
                                                device=src)
-            for dev in {src, dst}:  # the zeroed words exist before a kernel
-                torch.cuda.synchronize(dev)
-        return Edge(self.bufs[r].data_ptr(), self.flags[r].data_ptr(),
-                    self.counters[r - 1].data_ptr())
+            torch.cuda.synchronize(src)  # the zeroed word exists first
+            self.edges[r] = Edge(base + _IPC_HEAD, base,
+                                 self.counters[r - 1].data_ptr())
+        return self.edges[r]
 
     def err_ptr(self, r: int) -> int:
         return self.err.data_ptr() + 4 * r
@@ -376,11 +571,20 @@ class HaloExchange:
                 f"halo exchange (C={self.c}, h={self.h}): {'; '.join(msg)}; "
                 f"its output is invalid")
 
-    def begin(self) -> int:
-        """Start one exchange over all ranks: the new epoch."""
+    def begin(self, parts) -> int:
+        """Start one exchange of ``parts`` over all ranks: the new epoch,
+        whose transfers over ``NET`` edges are queued here, before any
+        kernel of the epoch launches."""
         self.check()
         self.epoch += 1
+        if self._net:
+            self._transfer(parts, self.epoch)
         return self.epoch
+
+    def sends(self, r: int) -> bool:
+        """Whether rank ``r``'s kernel B4 stores its tails into rank ``r +
+        1``'s receive buffer (on every edge but a ``NET`` one)."""
+        return r + 1 < len(self.mesh) and self.kinds[r] != NET
 
     def before_send(self, r: int, stream: torch.cuda.Stream) -> None:
         """Order ``stream``'s send into rank ``r + 1``'s buffer behind that
@@ -392,11 +596,12 @@ class HaloExchange:
     def launch_args(self, r: int):
         """Pointers of a launch that runs the protocol on both sides of
         rank ``r`` (kernel B4): ``(nbr, mine)``, the :class:`Edge` of the
-        right and of the left side, None where the rank has no such side.
-        Also orders the launch behind the neighbour's read of the buffer it
-        is about to overwrite."""
+        right and of the left side, None where the rank has no such side
+        (or, on a ``NET`` edge, stores nothing into the right one).  Also
+        orders the launch behind the neighbour's read of the buffer it is
+        about to overwrite."""
         nbr = mine = None
-        if r + 1 < len(self.mesh):
+        if self.sends(r):
             nbr = self.edge(r + 1)
             self.before_send(r, self.mesh.ranks[r].stream)
         if r:
@@ -411,14 +616,6 @@ class HaloExchange:
                          if event is None else event)
 
 
-def _expandable_segments() -> bool:
-    """Whether PyTorch's allocator maps memory in expandable segments
-    (``PYTORCH_CUDA_ALLOC_CONF`` / ``PYTORCH_ALLOC_CONF``)."""
-    conf = ",".join(os.environ.get(v, "") for v in (
-        "PYTORCH_CUDA_ALLOC_CONF", "PYTORCH_ALLOC_CONF"))
-    return "expandable_segments:true" in conf.replace(" ", "").lower()
-
-
 def enable_peer_access(a: torch.device, b: torch.device) -> List[int]:
     """Let kernels of card ``a`` store into card ``b``'s memory, and of
     ``b`` into ``a``'s: ``cudaDeviceEnablePeerAccess`` in both directions,
@@ -426,19 +623,13 @@ def enable_peer_access(a: torch.device, b: torch.device) -> List[int]:
     per direction, 0 where this call enabled the access and -1 where it
     was enabled already.  Raises for a pair without peer access (the halo
     kernels write the neighbour's buffer directly; nothing falls back to
-    copies through the host), and under PyTorch's expandable segments,
-    whose memory a peer reaches only after ``cuMemSetAccess`` on each
-    segment."""
+    copies through the host).  What a peer stores into is the exchange's
+    own ``cudaMalloc``, so PyTorch's expandable segments change nothing."""
     for src, dst in ((a, b), (b, a)):
         if not torch.cuda.can_device_access_peer(src.index, dst.index):
             raise RuntimeError(
                 f"no peer access from {src} to {dst}: the halo kernels "
                 f"write the neighbour card's buffer directly")
-    if _expandable_segments():
-        raise RuntimeError(
-            "the halo kernels between cards need PyTorch's default "
-            "allocator: under expandable_segments (PYTORCH_CUDA_ALLOC_CONF)"
-            " a peer card reaches memory only after cuMemSetAccess")
     lib = _build.load("halo_ring", _declare)
     got = []
     for src, dst in ((a, b), (b, a)):
@@ -489,6 +680,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.halo_ring_launch.argtypes = [p, i, i, i, p, ll, i, p, p, p, p, p, i,
                                      ll, p]
     lib.halo_ring_launch.restype = i
+    lib.halo_net_publish.argtypes = [p, i, p]
+    lib.halo_net_publish.restype = i
     lib.halo_enable_peer_access.argtypes = [i, i]
     lib.halo_enable_peer_access.restype = i
     lib.halo_ipc_alloc.argtypes = [i, ll, p]
@@ -504,9 +697,10 @@ def _declare(lib: ctypes.CDLL) -> None:
 def count_launch(wrapper, mesh: DspMesh, kinds: Sequence[str],
                  edges: Sequence[int]) -> None:
     """Count one launch of ``wrapper`` in ``.launches``, and in
-    ``.cross_card_launches`` / ``.cross_process_launches`` where one of the
-    launch's protocol ``edges`` (``r`` for ``r − 1 → r``) joins two cards
-    of this process / two processes."""
+    ``.cross_card_launches`` / ``.cross_process_launches`` /
+    ``.cross_host_launches`` where one of the launch's protocol ``edges``
+    (``r`` for ``r − 1 → r``) joins two cards of this process / two
+    processes / two hosts (a ``NET`` edge)."""
     wrapper.launches += 1
     ranks = mesh.ranks
     if any(kinds[r - 1] == PROTOCOL and ranks[r - 1].device != ranks[r].device
@@ -514,12 +708,14 @@ def count_launch(wrapper, mesh: DspMesh, kinds: Sequence[str],
         wrapper.cross_card_launches += 1
     if any(kinds[r - 1] == PROCESS for r in edges):
         wrapper.cross_process_launches += 1
+    if any(kinds[r - 1] == NET for r in edges):
+        wrapper.cross_host_launches += 1
 
 
 def left_halo_ring_cuda(parts: Sequence[Optional[torch.Tensor]], h: int,
                         mesh: DspMesh, *,
                         first_shard_value: Optional[torch.Tensor] = None,
-                        _per_rank: bool = False
+                        _per_rank: bool = False, _net: bool = False
                         ) -> List[Optional[torch.Tensor]]:
     """Launch kernel B3 once per run of this process's ranks on one card,
     on the stream of the run's first rank; the stream of every other rank
@@ -532,10 +728,13 @@ def left_halo_ring_cuda(parts: Sequence[Optional[torch.Tensor]], h: int,
 
     ``.launches`` counts the launches; ``.cross_card_launches`` those of
     them that send to or wait for another card of this process,
-    ``.cross_process_launches`` another process.  ``_per_rank`` (for the
-    checks of the protocol, not an entry point): launch each rank alone on
-    its own stream, every edge through the send / wait protocol, also
-    between ranks of one card."""
+    ``.cross_process_launches`` another process, ``.cross_host_launches``
+    another host.  ``_per_rank`` (for the checks of the protocol, not an
+    entry point): launch each rank alone on its own stream, every edge
+    through the send / wait protocol, also between ranks of one card.
+    ``_net`` (the same, for the ``NET`` branch): on a mesh of one process,
+    each rank alone, every edge a ``NET`` edge whose transport is a device
+    copy on the receiving rank's transfer stream."""
     check_time_mesh(mesh, parts)
     ranks, n = mesh.ranks, len(mesh)
     local = [r for r in range(n) if mesh.local(r)]
@@ -564,18 +763,21 @@ def left_halo_ring_cuda(parts: Sequence[Optional[torch.Tensor]], h: int,
             out[r] = torch.empty((c, h), dtype=torch.float32,
                                  device=ranks[r].device)
         return out
-    key = ("halo_ring_layout", _per_rank)
+    alone = _per_rank or _net
+    key = ("halo_ring_layout", alone)
     if key not in mesh.cache:
-        mesh.cache[key] = mesh_plan(mesh, _per_rank)
-    runs, kinds = mesh.cache[key]
+        mesh.cache[key] = mesh_plan(mesh, alone)[0]
+    runs = mesh.cache[key]
     lib = _build.load("halo_ring", _declare)
-    ex = HaloExchange.of(mesh, c, h)
-    epoch = ex.begin()
+    ex = HaloExchange.of(mesh, c, h, _net)
+    kinds = [PROTOCOL if k == DIRECT and alone else k for k in ex.kinds]
+    epoch = ex.begin(parts)
     for run in runs:
         first, last = run[0], run[-1]
         dev, stream = ranks[first].device, ranks[first].stream
         others = run[1:]  # whose tensors the launch reads and writes too
-        send = last + 1 < n  # the next rank is across a protocol edge
+        # the next rank is across an edge that the kernel stores into
+        send = last + 1 < n and kinds[last] != NET
         # the run's device and its first rank's stream, entered once
         with torch.cuda.stream(stream):
             halos = torch.empty((len(run), c, h), dtype=torch.float32,
@@ -633,6 +835,7 @@ def left_halo_ring_cuda(parts: Sequence[Optional[torch.Tensor]], h: int,
 left_halo_ring_cuda.launches = 0
 left_halo_ring_cuda.cross_card_launches = 0
 left_halo_ring_cuda.cross_process_launches = 0
+left_halo_ring_cuda.cross_host_launches = 0
 
 
 def left_halo_ring(parts: Sequence[Optional[torch.Tensor]], h: int,
@@ -640,9 +843,9 @@ def left_halo_ring(parts: Sequence[Optional[torch.Tensor]], h: int,
                    first_shard_value: Optional[torch.Tensor] = None
                    ) -> List[Optional[torch.Tensor]]:
     """Left-halo exchange on a 1-D time mesh, whose ranks may live in
-    several processes of one host (None in ``parts`` for the ranks of
-    other processes): kernel B3 on a CUDA mesh, the plain version on a CPU
-    mesh.  Orders rank against rank; the caller orders the mesh against
+    several processes, of one host or of several (None in ``parts`` for
+    the ranks of other processes): kernel B3 on a CUDA mesh, the plain
+    version on a CPU mesh.  Orders rank against rank; the caller orders the mesh against
     its own stream (``mesh.fork`` / ``mesh.join``)."""
     check_time_mesh(mesh, parts)
     if mesh.is_cuda:

@@ -16,17 +16,25 @@ IIR carry, the tap-parallel FIR's partial sums, the heartbeat's
 ``all_reduce``), so the sharded ops, ``fir_filter_tap_parallel`` and the
 channelizer's ``sharded_step`` run on such a mesh.  Kernels B3 and B4
 (``halo="rdma"`` / ``"rdma_fused"``, on a 1-D mesh: ``mesh.row(0)`` of a
-``(1, n)`` one) reach the neighbour of another process through CUDA IPC:
-each process opens the other's receive buffer, flag and ack word in a
-handshake over the process group (``kernels/halo_ring.py``), which works
-over gloo as well as NCCL.  That holds within one host; an edge between
-two hosts raises, naming ``halo="ppermute"``.  NCCL ran between 2 and 4
-processes of one machine, a card each, bit for bit one process's mesh
-(``tests/test_torch_distributed.py``, ``tests/test_torch_multicard.py``);
-across hosts it is unverified.  NCCL refuses two processes on one card:
-there a CUDA mesh of several processes takes a gloo group (the halo
-kernels exchange only their handles through it), or the CUDA path runs
-as a group of one.
+``(1, n)`` one) reach the neighbour of another process of the same host
+through CUDA IPC: each process opens the other's receive buffer, flag and
+ack word in a handshake over the process group (``kernels/halo_ring.py``),
+which works over gloo as well as NCCL.  Between two hosts (as each
+process's ``socket.gethostname()`` says, gathered in the handshake) an
+edge is a ``NET`` edge: the sender's tails travel by NCCL's
+point-to-point send, queued before the kernels launch, and the receiving
+kernel waits for them on its flag as on any other edge; that needs a NCCL
+group, and on gloo every process raises, naming NCCL.  NCCL ran between 2
+and 4 processes of one machine, a card each, bit for bit one process's
+mesh (``tests/test_torch_distributed.py``, ``tests/test_torch_multicard.py``),
+and so did the ``NET`` edges with NCCL held to its network transport
+(``NCCL_P2P_DISABLE=1 NCCL_SHM_DISABLE=1``, each process naming itself a
+host: ``python3 scripts/halo_ipc_worker_torch.py hosts 2`` on a machine
+of two cards, or ``chip_smoke.py --only-processes``); between two real
+machines it is unverified.  NCCL refuses two processes on one card: there
+a CUDA mesh of several processes takes a gloo group (the halo kernels
+exchange only their handles through it), or the CUDA path runs as a group
+of one.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 """Kernels B3 and B4 across processes: the worker processes of phase 12
 of ``chip_smoke.py`` and of the card test of ``tests/test_torch_cuda.py``.
 
-Two modes, each one process of a group that :func:`launch` starts on a
+Three modes, each one process of a group that :func:`launch` starts on a
 free loopback port:
 
 * ``card``: every process on ``cuda:0``, joined over gloo (NCCL refuses
@@ -25,6 +25,16 @@ free loopback port:
   CUDA-event times of the step, of B3 at config 5's ``(1024, 2048)``
   tails and of B4 at 256 channels, the slowest process's.  On two
   processes also config 1 through ``fir_filter_tap_parallel``.
+* ``hosts``: as ``cards``, but each process names itself a host of its
+  own (:func:`as_own_host` replaces ``kernels.halo_ring.host_name``), so
+  that every edge of the mesh is a ``NET`` edge (the tails through NCCL,
+  the wait in the kernels), and the launcher starts the workers with
+  ``NCCL_P2P_DISABLE=1`` and ``NCCL_SHM_DISABLE=1``, which leave NCCL its
+  network transport (sockets, or InfiniBand where there is some), and
+  with ``NCCL_DEBUG=INFO``: each result names the transports that NCCL's
+  log shows (``nccl_transport``), and a peer-to-peer or shared-memory
+  one raises.  The same paths and fingerprints as ``cards``; the
+  ``ppermute`` steps go over the same transport.
 
 Each process writes ``result_<process>.json`` into the output directory;
 the launch counts of each path are counted from 0 just before it and read
@@ -32,6 +42,7 @@ just after.  Inputs are made on the card from seeds, the same in every
 process and in the launcher's reference.
 
     python scripts/halo_ipc_worker_torch.py card 2 [--channels 1024 ...]
+    python scripts/halo_ipc_worker_torch.py hosts 2   # two cards or more
 
 runs a group from the command line and prints each process's result.
 """
@@ -41,6 +52,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import argparse
 import json
+import re
 import socket
 import subprocess
 import time
@@ -54,9 +66,12 @@ CZ_CHANNELS, CZ_T_LOC, CZ_FUSED_CHANNELS = 1024, 327680, 256
 #: the channelizer's kernel-halo paths: (fir_method, halo, channels)
 CZ_PATHS = (("fused", "rdma", CZ_CHANNELS), ("block2", "rdma", CZ_CHANNELS),
             ("block2", "rdma_fused", CZ_FUSED_CHANNELS))
-#: timed beside them, a process a card: the plain halos
+#: timed beside them, a process a card: the plain halos, and block2 at
+#: rdma_fused's 256 channels with the other two halos
 CZ_TIMED = (("fused", "ppermute", CZ_CHANNELS),
-            ("block2", "ppermute", CZ_CHANNELS))
+            ("block2", "ppermute", CZ_CHANNELS),
+            ("block2", "rdma", CZ_FUSED_CHANNELS),
+            ("block2", "ppermute", CZ_FUSED_CHANNELS))
 #: B3's halo width on config 5's fused path (its 2-block history)
 B3_H = 2048
 #: the kernels' floors against their plain versions in float64
@@ -64,6 +79,28 @@ B3_H = 2048
 FLOOR_DB = {"highest": 130.0, "high": 75.0}
 #: how long a group may take, process starts included
 TIMEOUT_S = 600
+#: the ``hosts`` mode's environment: NCCL without its peer-to-peer and
+#: shared-memory transports, as between two machines (the launcher adds
+#: ``NCCL_DEBUG=INFO``, whose log names the transport, on stdout)
+NET_ENV = {"NCCL_P2P_DISABLE": "1", "NCCL_SHM_DISABLE": "1"}
+#: the connections that NCCL's log names ("... via NET/Socket/0")
+_VIA = re.compile(r" via ((?:NET|P2P|SHM|CollNet)/[\w/]+)")
+
+
+def as_own_host() -> str:
+    """Name this process a host of its own for the halo kernels: every
+    edge to another process becomes a ``NET`` edge.  Returns the name."""
+    from llzlab_tpu_torch.kernels import halo_ring as hr
+
+    name = f"{socket.gethostname()}/process{os.environ['JAX_PROCESS_ID']}"
+    hr.host_name = lambda: name
+    return name
+
+
+def nccl_transports(log: str) -> list:
+    """The transports of the connections that NCCL's log (``NCCL_DEBUG=
+    INFO``) names, without their channel numbers."""
+    return sorted({re.sub(r"/\d+(?=/|$)", "", m) for m in _VIA.findall(log)})
 
 
 def digest(t) -> str:
@@ -115,14 +152,17 @@ def _launches():
             "halo_fir_fused": hf.block2_fir_halo_fused_cuda}
 
 
-def _counted(fn):
+def _counted(fn, across: str = "cross_process_launches"):
     """``fn()`` with the launch counts of B3 and B4 set to 0 before and
-    read after: ``(result, {kernel: [launches, across processes]})``."""
+    read after: ``(result, {kernel: [launches, across processes]})``
+    (``across``: the counter of the launches across, processes or
+    hosts)."""
     wrappers = _launches()
     for w in wrappers.values():
-        w.launches = w.cross_process_launches = 0
+        w.launches = 0
+        setattr(w, across, 0)
     out = fn()
-    return out, {k: [w.launches, w.cross_process_launches]
+    return out, {k: [w.launches, getattr(w, across)]
                  for k, w in wrappers.items()}
 
 
@@ -331,8 +371,8 @@ def cz_steps(ch, mesh, channels, t_loc, halo, steps: int = 2):
 
 
 def cards_run(args) -> dict:
-    """``cards`` mode: config 5's kernel-halo steps, B3, B4 and the
-    tap-parallel FIR on a process a card."""
+    """``cards`` and ``hosts`` modes: config 5's kernel-halo steps, B3, B4
+    and the tap-parallel FIR on a process a card."""
     import torch
     import torch.distributed as dist
 
@@ -350,14 +390,21 @@ def cards_run(args) -> dict:
     me = dist.get_rank()
     dev = mesh.ranks[me].device
     res = {"process": me, "device": torch.cuda.get_device_name(dev),
-           "paths": {}, "digests": {}, "traffic": {}, "step_ms": {}}
+           "kinds": hr.mesh_plan(mesh)[1], "paths": {}, "digests": {},
+           "traffic": {}, "step_ms": {}}
+    across = ("cross_host_launches" if args.mode == "hosts"
+              else "cross_process_launches")
     t_loc = args.t_loc
     for method, halo, channels in CZ_PATHS + CZ_TIMED:
+        checked = (method, halo, channels) in CZ_PATHS
+        channels = min(channels, args.channels)
         ch = Channelizer(fir_method=method, device=dev)
         path = f"config 5 {method} {halo} {channels}ch 1x{procs} processes"
-        if halo != "ppermute":
+        if path in res["step_ms"]:
+            continue
+        if checked:
             res["digests"][path], res["paths"][path] = _counted(
-                lambda: cz_steps(ch, mesh, channels, t_loc, halo))
+                lambda: cz_steps(ch, mesh, channels, t_loc, halo), across)
             hr.check_exchanges(mesh)
         parts = [mesh.run(r, lambda r, rank: rank_block(
             r, 0, channels, t_loc, rank.device), r, mesh.ranks[r])
@@ -374,13 +421,13 @@ def cards_run(args) -> dict:
         torch.cuda.empty_cache()
     # ---- B3 and B4 alone, timed ----------------------------------------
     ch = Channelizer(fir_method="block2", device=dev)
-    x = {r: rank_block(r, 0, CZ_CHANNELS, t_loc, dev)
+    x = {r: rank_block(r, 0, args.channels, t_loc, dev)
          for r in range(procs) if mesh.local(r)}
     parts = [x.get(r) for r in range(procs)]
     res["b3_ms"] = _event_ms(_on(mesh, lambda: hr.left_halo_ring(
-        parts, B3_H, mesh)), 10)
+        parts, args.h, mesh)), 10)
     hr.check_exchanges(mesh)
-    parts = [None if p is None else p[:CZ_FUSED_CHANNELS].contiguous()
+    parts = [None if p is None else p[:args.b4_channels].contiguous()
              for p in parts]
     res["b4_ms"] = _event_ms(_on(mesh, lambda: hf.block2_fir_halo_fused(
         parts, ch.fir_taps, mesh, mode="highest")), 10)
@@ -391,7 +438,7 @@ def cards_run(args) -> dict:
         xs, taps = tap_inputs()
         path = f"config 1 fir_filter_tap_parallel 1x{procs} processes"
         got, res["paths"][path] = _counted(lambda: fir_filter_tap_parallel(
-            torch.from_numpy(xs), taps, gmesh))
+            torch.from_numpy(xs), taps, gmesh), across)
         res["digests"][path] = {f"rank{r}": digest(v)
                                 for r, v in enumerate(got) if v is not None}
     return res
@@ -399,7 +446,7 @@ def cards_run(args) -> dict:
 
 def worker(argv) -> int:
     p = argparse.ArgumentParser()
-    p.add_argument("mode", choices=["card", "cards"])
+    p.add_argument("mode", choices=["card", "cards", "hosts"])
     p.add_argument("out")
     p.add_argument("--channels", type=int, default=CZ_CHANNELS)
     p.add_argument("--t-loc", type=int, default=CZ_T_LOC)
@@ -414,6 +461,8 @@ def worker(argv) -> int:
 
     from llzlab_tpu_torch.runtime import distributed as rd
 
+    if args.mode == "hosts":
+        as_own_host()
     rd.init_distributed(device="cpu" if args.mode == "card" else "cuda")
     try:
         t0 = time.perf_counter()
@@ -438,9 +487,12 @@ def _free_port() -> int:
 def launch(mode: str, procs: int, out: str, extra=(), attempts: int = 3
            ) -> list:
     """Start ``procs`` worker processes of ``mode`` on a free loopback port
-    (``cards``: process ``p`` sees card ``p`` alone), wait for them, and
-    return their results in process order.  Raises with the workers'
-    output if one fails; where another process took the port meanwhile
+    (``cards`` and ``hosts``: process ``p`` sees card ``p`` alone;
+    ``hosts`` with :data:`NET_ENV`), wait for them, and return their
+    results in process order (``hosts``: each with the transports of its
+    NCCL log, ``nccl_transport``).  Raises with the workers' output if one
+    fails, or if a ``hosts`` worker's NCCL connected otherwise than through
+    its network transport; where another process took the port meanwhile
     (``EADDRINUSE``), starts again on a new one."""
     os.makedirs(out, exist_ok=True)
     for attempt in range(attempts):
@@ -452,8 +504,10 @@ def launch(mode: str, procs: int, out: str, extra=(), attempts: int = 3
                        JAX_NUM_PROCESSES=str(procs), JAX_PROCESS_ID=str(pid),
                        PYTHONPATH=REPO + os.pathsep
                        + env.get("PYTHONPATH", ""))
-            if mode == "cards":
+            if mode in ("cards", "hosts"):
                 env["CUDA_VISIBLE_DEVICES"] = str(pid)
+            if mode == "hosts":
+                env.update(NET_ENV, NCCL_DEBUG="INFO")
             ps.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), mode, out,
                  *extra], env=env, stdout=subprocess.PIPE,
@@ -471,6 +525,14 @@ def launch(mode: str, procs: int, out: str, extra=(), attempts: int = 3
             for pid in range(procs):
                 with open(os.path.join(out, f"result_{pid}.json")) as f:
                     results.append(json.load(f))
+                if mode == "hosts":
+                    via = nccl_transports(logs[pid])
+                    if not via or any(not v.startswith("NET/") for v in via):
+                        raise RuntimeError(
+                            f"hosts worker {pid}: NCCL connected via {via}, "
+                            f"not through its network transport alone:\n"
+                            f"{logs[pid][-4000:]}")
+                    results[-1]["nccl_transport"] = via
             return results
         if not any("EADDRINUSE" in log for log in logs) or \
                 attempt + 1 == attempts:

@@ -34,14 +34,20 @@ functional run at a tiny size on CPU ranks (129 taps, 3/4, K = 8,
 host's, not a device's.
 
     python scripts/pod_scaling_torch.py [--scaling weak|strong] [--cpu]
-        [--procs] [--meshes 1x1,2x2] [--iters 5] [--fir-method fused]
+        [--procs [--hosts]] [--meshes 1x1,2x2] [--iters 5]
+        [--fir-method fused]
         [--frames local] [--halo ppermute] [--metrics out.jsonl]
 
 The step is config 5's at ``highest`` with ``halo="ppermute"`` by
 default; ``--halo rdma`` (kernel B3) or ``rdma_fused`` (B4, with
 ``--fir-method block2`` and at most 256 channels) run on the time row of
 ``1xn`` meshes, in one process or with ``--procs`` across processes
-(through CUDA IPC between the processes of this machine).
+(through CUDA IPC between the processes of this machine).  ``--hosts``
+with ``--procs`` makes each process a host of its own: the kernels' edges
+are ``NET`` edges (the tails through NCCL, started with
+``halo_ipc_worker_torch.NET_ENV``, ``NCCL_P2P_DISABLE=1
+NCCL_SHM_DISABLE=1``, so that NCCL takes its network transport, as
+between two machines).
 
 Prints one JSON line per mesh point and a final summary line.  Needs a
 card unless ``--cpu``.
@@ -138,6 +144,10 @@ def run_point(args, cfg, n_channel: int, n_time: int, procs: int) -> dict:
             raise ValueError(f"--halo {args.halo} needs 1xn meshes, got "
                              f"{n_channel}x{n_time}")
         mesh = mesh.row(0)
+    edges = None
+    if args.halo != "ppermute" and procs > 1:  # every process at once
+        from llzlab_tpu_torch.kernels.halo_ring import mesh_plan
+        edges = mesh_plan(mesh)[1]
     home = mesh.ranks[mesh.home].device
     chan = make_channelizer(cfg, args.fir_method, home)
     chan.validate_sharded_shapes(mesh, c_total, t_total, args.frames)
@@ -203,6 +213,7 @@ def run_point(args, cfg, n_channel: int, n_time: int, procs: int) -> dict:
         "channels": c_total,
         "samples": t_total,
         "ms_cuda_events": ms,
+        "halo_edges": edges,
     }
 
 
@@ -229,6 +240,9 @@ def spawn_point(args, n_channel: int, n_time: int, attempts: int = 3
                        JAX_NUM_PROCESSES=str(nd), JAX_PROCESS_ID=str(pid))
             if not args.cpu:
                 env["CUDA_VISIBLE_DEVICES"] = str(pid)
+            if args.hosts:
+                from scripts.halo_ipc_worker_torch import NET_ENV
+                env.update(NET_ENV)
             cmd = [sys.executable, os.path.abspath(__file__), "--worker",
                    f"{n_channel}x{n_time}"] + args.forward
             procs.append(subprocess.Popen(
@@ -263,6 +277,8 @@ def main(argv=None):
     p.add_argument("--frames", default="local", choices=["local", "a2a"])
     p.add_argument("--halo", default="ppermute",
                    choices=["ppermute", "rdma", "rdma_fused"])
+    p.add_argument("--hosts", action="store_true",
+                   help="with --procs: each process a host of its own")
     p.add_argument("--metrics", default=None,
                    help="append JSONL events to this path")
     p.add_argument("--worker", default=None, help=argparse.SUPPRESS)
@@ -279,6 +295,9 @@ def main(argv=None):
 
     if args.worker:  # one process of a --procs point
         nc, nt = parse_meshes(args.worker)[0]
+        if args.hosts:
+            from scripts.halo_ipc_worker_torch import as_own_host
+            as_own_host()
         rd.init_distributed(device="cpu" if args.cpu else "cuda")
         import torch.distributed as dist
         try:
@@ -310,6 +329,8 @@ def main(argv=None):
                    procs=args.procs)
     if args.halo != "ppermute":  # the hash of the ppermute runs stays
         run_cfg["halo"] = args.halo
+    if args.hosts:
+        run_cfg["hosts"] = True
     points, base = [], None
     for nc, nt in shapes:
         rec = (spawn_point(args, nc, nt) if args.procs

@@ -247,6 +247,80 @@ def test_halo_ring_protocol_branch_on_one_card(h):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h", [7, 63, 128])
+def test_halo_ring_net_branch_on_one_card(h):
+    """Every edge a ``NET`` edge (``_net=True``: the tails through a
+    device copy on each receiving rank's transfer stream, the epoch
+    published by a one-thread kernel, the kernel's receive half alone):
+    one launch a rank, each across a ``NET`` edge, bitwise the normal
+    launch and the plain version over three epochs, rank 0's stream held
+    back in the last."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from llzlab_tpu_torch.kernels import halo_ring as hr
+
+    rng = np.random.default_rng(46)
+    mesh = _time_mesh(4)
+    wide = torch.from_numpy(
+        rng.standard_normal((4, 24, 300)).astype(np.float32)).cuda()
+    parts = [wide[r, :, 3:259] for r in range(4)]  # strided rows
+    carry = torch.from_numpy(
+        rng.standard_normal((24, h)).astype(np.float32)).cuda()
+    plain = hr.left_halo_ring_plain(parts, h, mesh, first_shard_value=carry)
+    n, net = hr.left_halo_ring_cuda.launches, \
+        hr.left_halo_ring_cuda.cross_host_launches
+    for epoch in range(3):
+        if epoch == 2:
+            with mesh.on(0):
+                torch.cuda._sleep(int(2e8))
+        mesh.fork()
+        got = hr.left_halo_ring_cuda(parts, h, mesh, first_shard_value=carry,
+                                     _net=True)
+        normal = hr.left_halo_ring_cuda(parts, h, mesh,
+                                        first_shard_value=carry)
+        mesh.join()
+        hr.check_exchanges(mesh)
+        for a, b, c in zip(got, normal, plain):
+            assert torch.equal(a, c) and torch.equal(b, c)
+    assert hr.left_halo_ring_cuda.launches == n + 3 * (4 + 1)
+    assert hr.left_halo_ring_cuda.cross_host_launches == net + 3 * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["high", "highest"])
+def test_halo_fir_fused_net_branch_on_one_card(mode):
+    """B4 with every edge a ``NET`` edge: its senders store nothing, its
+    waiters wait for the flag of the transfer stream; bitwise the normal
+    launch over three epochs (no carry, then a block of carry)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from llzlab_tpu_torch.kernels import halo_fir_fused as hf
+    from llzlab_tpu_torch.kernels import halo_ring as hr
+
+    rng = np.random.default_rng(47)
+    taps = firwin(1024, 0.3)
+    block = block2_block(1024)
+    mesh = _time_mesh(4)
+    x = torch.from_numpy(
+        rng.standard_normal((16, 4 * 3 * block)).astype(np.float32)).cuda()
+    parts = list(x.reshape(16, 4, 3 * block).permute(1, 0, 2).contiguous())
+    carry = None
+    net = hf.block2_fir_halo_fused_cuda.cross_host_launches
+    for _ in range(3):
+        mesh.fork()
+        got = hf.block2_fir_halo_fused_cuda(
+            parts, taps, mesh, first_shard_value=carry, mode=mode, _net=True)
+        normal = hf.block2_fir_halo_fused_cuda(
+            parts, taps, mesh, first_shard_value=carry, mode=mode)
+        mesh.join()
+        hr.check_exchanges(mesh)
+        for a, b in zip(got, normal):
+            assert torch.equal(a, b)
+        carry = parts[-1][:, -block:].contiguous()
+    assert hf.block2_fir_halo_fused_cuda.cross_host_launches == net + 3 * 4
+
+
+@pytest.mark.cuda
 def test_halo_ring_protocol_receive_that_times_out_raises(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")

@@ -163,13 +163,14 @@ def test_exchanges_refuse_what_they_cannot_serve():
     with pytest.raises(ValueError, match="1-D"):
         hr.left_halo_ring(parts, 8, mesh)
     # a time mesh holding ranks of another process: the kernels reach
-    # them through CUDA IPC, within one host only
+    # them through CUDA IPC within one host, through NCCL between two
     remote = pm.DspMesh(["cpu"] * 4, (pm.TIME_AXIS,), processes=[0, 0, 1, 1])
     assert remote.is_distributed and remote.local(1) and not remote.local(2)
     assert hr.mesh_plan(remote) == ([[0, 1]], [hr.DIRECT, hr.PROCESS,
                                                hr.DIRECT])
-    with pytest.raises(RuntimeError, match="another host"):
-        hr.check_same_host(["a", "b"], [(0, 1)])
+    places = [(None, "cpu")] * 2 + [(1, "cpu")] * 2
+    assert hr.edge_plan(places, hosts=["a", "a", "b", "b"]) == (
+        [[0, 1]], [hr.DIRECT, hr.NET, hr.DIRECT])
     with pytest.raises(ValueError, match="lives in process 1"):
         with remote.on(3):
             pass

@@ -1,7 +1,8 @@
 """The port on several cards of one machine: kernel B3's cross-card branch
 and B4 with its neighbours on other cards, the channelizer's
 ``sharded_step`` on meshes over 2 and 4 cards in one process, the tool's
-default mesh, and four processes a card each over NCCL.  Every output is
+default mesh, four processes a card each over NCCL, and two processes a
+card each as two hosts (``NET`` edges: NCCL on its network transport).  Every output is
 held bit for bit against the same ranks on ``cuda:0`` (or, for the four
 processes, against one process's 4-card mesh), at small widths.
 
@@ -257,3 +258,42 @@ def test_four_processes_over_nccl_are_the_four_card_mesh(tmp_path):
     channelizer_same_as_one_process(out, cards, 4)
     channelizer_same_as_one_process(out, cards, 4, CZ_KERNEL_RUNS)
     kernels_same_as_one_process(out, cards)
+
+
+def test_two_processes_as_two_hosts_are_one_process_mesh(tmp_path):
+    """The ``hosts`` mode of ``scripts/halo_ipc_worker_torch.py`` on two
+    cards, small: each process a host of its own, so both edges are
+    ``NET`` edges, NCCL without its peer-to-peer and shared-memory
+    transports (its log names a network one); the channelizer's ``rdma``
+    and ``rdma_fused`` steps and each process's state are bitwise the same
+    steps of one process's mesh over the two cards, B3 and B4 launched
+    across the hosts, and the traffic is the model's."""
+    _need(2)
+    from llzlab_tpu_torch import Channelizer
+    from llzlab_tpu_torch.kernels import halo_ring as hr
+    from llzlab_tpu_torch.parallel.mesh import TIME_AXIS, DspMesh
+    from scripts import halo_ipc_worker_torch as hw
+
+    channels, t_loc = 256, 327680
+    res = hw.launch("hosts", 2, str(tmp_path), [
+        "--channels", str(channels), "--t-loc", str(t_loc), "--iters", "2"])
+    mesh = DspMesh([torch.device("cuda", i) for i in range(2)],
+                   (TIME_AXIS,))
+    for r in res:
+        assert r["kinds"] == [hr.NET]
+        assert r["nccl_transport"] and all(
+            v.startswith("NET/") for v in r["nccl_transport"])
+    for method, halo, _ in hw.CZ_PATHS:
+        c = min(channels, hw.CZ_FUSED_CHANNELS) if halo == "rdma_fused" \
+            else channels
+        path = f"config 5 {method} {halo} {c}ch 1x2 processes"
+        want = hw.cz_steps(Channelizer(fir_method=method, device="cuda:0"),
+                           mesh, c, t_loc, halo)
+        for r in res:
+            for k, v in r["digests"][path].items():
+                assert want[k] == v, (path, r["process"], k)
+            moved, model = r["traffic"][path]
+            assert moved == model
+        counts = [r["paths"][path] for r in res]
+        assert all(n[1] > 0 for n in (counts[0]["halo_ring"],
+                                      counts[1]["halo_ring"]))

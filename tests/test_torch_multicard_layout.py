@@ -3,8 +3,10 @@ lists, no stream made.  ``parallel.mesh.deal_devices`` for 1 to 4 cards
 and the meshes of the multi-card runs; kernel B3's grouping of every dealt
 row by card (``ranks_by_card``) and its same-card edges; the channelizer
 tool's mesh against ``make_dsp_mesh``'s; the mesh's per-process first
-ranks; and the refusals of peer access that the halo kernels need between
-cards."""
+ranks; the refusals of peer access that the halo kernels need between
+cards, and that PyTorch's expandable segments no longer refuse it; and the
+kind of each edge by process, card and host (a ``NET`` edge between hosts,
+which raises on a group that is not NCCL's)."""
 
 import pytest
 import torch
@@ -126,22 +128,42 @@ def test_a_pair_of_cards_without_peer_access_raises(monkeypatch):
                               torch.device("cuda", 1))
 
 
+class _PeerLib:
+    """The build's C library as far as ``enable_peer_access`` calls it:
+    each direction's ``cudaDeviceEnablePeerAccess`` is recorded and
+    answers 0 (enabled now), or -1 (already enabled) the second time."""
+
+    def __init__(self):
+        self.calls = []
+
+    def halo_enable_peer_access(self, src, dst):
+        self.calls.append((src, dst))
+        return -1 if self.calls.count((src, dst)) > 1 else 0
+
+
 @pytest.mark.parametrize("var", ["PYTORCH_CUDA_ALLOC_CONF",
                                  "PYTORCH_ALLOC_CONF"])
 def test_peer_access_refuses_expandable_segments(var, monkeypatch):
+    """The name is the old behaviour's.  Under PyTorch's expandable
+    segments peer access is enabled as under the default allocator, in
+    both directions: what a peer card stores into is the exchange's own
+    ``cudaMalloc``, never the allocator's memory."""
     monkeypatch.setattr(torch.cuda, "can_device_access_peer",
                         lambda a, b: True)
     monkeypatch.setenv(var, "max_split_size_mb:64, expandable_segments:True")
-    with pytest.raises(RuntimeError, match="expandable_segments"):
-        hr.enable_peer_access(torch.device("cuda", 0),
-                              torch.device("cuda", 1))
+    lib = _PeerLib()
+    monkeypatch.setattr(hr._build, "load", lambda name, declare: lib)
+    a, b = torch.device("cuda", 0), torch.device("cuda", 1)
+    assert hr.enable_peer_access(a, b) == [0, 0]
+    assert hr.enable_peer_access(b, a) == [-1, -1]
+    assert lib.calls == [(0, 1), (1, 0), (1, 0), (0, 1)]
 
 
 def _places(layout):
     return [(p, torch.device("cuda", d)) for p, d in layout]
 
 
-D, P, X = hr.DIRECT, hr.PROTOCOL, hr.PROCESS
+D, P, X, N = hr.DIRECT, hr.PROTOCOL, hr.PROCESS, hr.NET
 
 
 @pytest.mark.parametrize("layout,kinds,runs", [
@@ -170,6 +192,31 @@ def test_edge_plan_by_process_and_card(layout, kinds, runs):
     assert hr.edge_plan(places, 9) == ([], kinds)  # a process of no rank
 
 
+@pytest.mark.parametrize("layout,hosts,kinds", [
+    # two processes of two ranks each, on two hosts
+    ([(0, 0), (0, 0), (1, 0), (1, 0)], "aabb", [D, N, D]),
+    # ... on one host
+    ([(0, 0), (0, 0), (1, 0), (1, 0)], "aaaa", [D, X, D]),
+    # a process a card, two processes a host
+    ([(p, 0) for p in range(4)], "aabb", [X, N, X]),
+    # a process a card, a host each
+    ([(p, 0) for p in range(4)], "abcd", [N, N, N]),
+    # two processes of two cards each, a host each
+    ([(0, 0), (0, 1), (1, 0), (1, 1)], "aabb", [P, N, P]),
+])
+def test_edge_plan_by_host(layout, hosts, kinds):
+    """An edge between processes on two hosts is a ``NET`` edge, on one
+    host a ``PROCESS`` edge; within a process the host changes nothing.
+    The runs each process launches do not depend on the hosts."""
+    places = _places(layout)
+    for me in (0, 1):
+        runs, got = hr.edge_plan(places, me, hosts=list(hosts))
+        assert got == kinds
+        assert runs == hr.edge_plan(places, me)[0]
+        alone = hr.edge_plan(places, me, per_rank=True, hosts=list(hosts))
+        assert alone[1] == [P if k == D else k for k in kinds]
+
+
 def test_edge_plan_of_a_mesh_across_processes_and_its_refusals():
     mesh = DspMesh(["cpu"] * 4, (TIME_AXIS,), processes=[0, 0, 1, 1])
     assert hr.mesh_plan(mesh) == ([[0, 1]], [D, X, D])
@@ -180,7 +227,19 @@ def test_edge_plan_of_a_mesh_across_processes_and_its_refusals():
     assert hr.edge_plan(_places([(0, 0), (1, 0)]), 1) == ([[1]], [X])
 
 
-def test_an_edge_across_hosts_raises_naming_ppermute():
-    hr.check_same_host(["a", "a", "b"], [(0, 1)])
-    with pytest.raises(RuntimeError, match="halo='ppermute'"):
-        hr.check_same_host(["a", "a", "b"], [(0, 1), (1, 2)])
+def test_an_edge_across_hosts_raises_naming_ppermute(monkeypatch):
+    """The name is the old behaviour's.  An edge between two hosts is a
+    ``NET`` edge, whose bytes travel through NCCL: the halo exchange of a
+    mesh with one raises, naming NCCL, where the process group is not
+    NCCL's (here: none), before it allocates anything; the same mesh on
+    one host plans ``PROCESS`` edges."""
+    mesh = DspMesh(["cpu"] * 4, (TIME_AXIS,), processes=[0, 0, 1, 1])
+    assert hr.mesh_plan(mesh)[1] == [D, X, D]  # no group: one host
+    monkeypatch.setattr(hr, "process_hosts", lambda m: ["a", "a", "b", "b"])
+    assert hr.mesh_plan(mesh) == ([[0, 1]], [D, N, D])
+    with pytest.raises(RuntimeError, match="NCCL") as err:
+        hr.HaloExchange(mesh, 8, 63)
+    assert "(1, 2)" in str(err.value) and "gloo" in str(err.value)
+    hr.check_net_group([D, X, D])  # no NET edge: any group will do
+    with pytest.raises(RuntimeError, match="no process group"):
+        hr.check_net_group([D, N, D])

@@ -56,6 +56,18 @@ def test_one_process_a_rank_over_gloo():
     assert points[0]["comm_bytes_per_step"] == points[0]["comm_bytes_hlo"]
 
 
+@pytest.mark.multihost
+def test_processes_as_hosts_plan_net_edges_over_gloo():
+    """``--procs --hosts --halo rdma``: each process a host of its own, so
+    the kernels' one edge is a ``NET`` edge (the plain versions run on CPU
+    ranks); the model's bytes are the count."""
+    points, summary = _run("--procs", "--hosts", "--halo", "rdma",
+                           "--meshes", "1x2")
+    assert points[0]["procs"] == 2 and points[0]["halo_edges"] == ["net"]
+    assert points[0]["comm_bytes_per_step"] == points[0]["comm_bytes_hlo"]
+    assert summary["config"]["hosts"] is True
+
+
 def test_the_model_is_the_jax_scripts_for_a_process_a_rank():
     sys.path.insert(0, os.path.join(REPO, "scripts"))
     try:
