@@ -42,6 +42,7 @@ from llzlab_tpu_torch.parallel.mesh import (CHANNEL_AXIS, TIME_AXIS, DspMesh,
                                             local_block, note_traffic)
 from llzlab_tpu_torch.parallel.reshard import to_channel_major
 from llzlab_tpu_torch.runtime.platform import kernel_mode
+from llzlab_tpu_torch.runtime.profiler import request, span
 
 __all__ = ["Channelizer"]
 
@@ -199,26 +200,28 @@ class Channelizer:
 
     def step(self, x: torch.Tensor, state):
         """Unsharded step: ``(C, T)`` → ``(C, F, fft_n//2+1)``."""
-        if self.fir_method == "fused":
-            hist, rs_st = state
-            z, zf = self._fused_step(x, hist)
-            return self._frames(z), (zf, rs_st)
-        fir_st, rs_st = state
-        y, fir_tail = _fir.fir_filter(
-            x, self.fir_taps, method=self.fir_method, nfft=self.nfft,
-            zi=fir_st, return_zf=True)
-        z, rs_tail = _rs.resample_poly(
-            y, self.up, self.down, taps=self.resample_taps, zi=rs_st,
-            return_zf=True)
-        return self._frames(z), (fir_tail, rs_tail)
+        with request("chains", "Channelizer.step"):
+            if self.fir_method == "fused":
+                hist, rs_st = state
+                z, zf = self._fused_step(x, hist)
+                return self._frames(z), (zf, rs_st)
+            fir_st, rs_st = state
+            y, fir_tail = _fir.fir_filter(
+                x, self.fir_taps, method=self.fir_method, nfft=self.nfft,
+                zi=fir_st, return_zf=True)
+            z, rs_tail = _rs.resample_poly(
+                y, self.up, self.down, taps=self.resample_taps, zi=rs_st,
+                return_zf=True)
+            return self._frames(z), (fir_tail, rs_tail)
 
     def _frames(self, z: torch.Tensor) -> torch.Tensor:
-        c = z.shape[0]
-        nf = z.shape[-1] // self.fft_n
-        zf = z[..., : nf * self.fft_n].reshape(c, nf, self.fft_n)
-        if self.spec_format == "pair":
-            return _tf.rfft_pair(zf, self.fft_n)
-        return _tf.rfft(zf, self.fft_n, method=self.fft_method)
+        with span("chains", "frames"):
+            c = z.shape[0]
+            nf = z.shape[-1] // self.fft_n
+            zf = z[..., : nf * self.fft_n].reshape(c, nf, self.fft_n)
+            if self.spec_format == "pair":
+                return _tf.rfft_pair(zf, self.fft_n)
+            return _tf.rfft(zf, self.fft_n, method=self.fft_method)
 
     # ---------------- sharded step ----------------
 
@@ -424,12 +427,9 @@ class Channelizer:
         kernels_exchange = halo != "ppermute" and mesh.is_cuda
         issued = []  # per rank, the end of the previous call's work
 
-        def step(parts: Sequence[torch.Tensor], state):
-            if len(parts) != n:
-                raise ValueError(f"{len(parts)} blocks for {n} ranks")
-            fir_st, rs_st = state
-            ref = local_block(parts)
-            mesh.fork()
+        def rows_step(parts, fir_st, rs_st, ref):
+            """Each channel row's FIR and resampler: ``(z, x_ends,
+            y_ends)``, ``z`` the resampled block of each rank."""
             if len(rows) > 1:
                 fir_rows = row_values(fir_st, mesh)
                 rs_rows = row_values(rs_st, mesh)
@@ -457,26 +457,41 @@ class Channelizer:
                     zs = resample_row(rmesh, y, rs_rows[c])
                 for r, v in zip(row, zs):
                     z[r] = v
-            if self.fir_method == "fused":
-                new_state = (tails(x_ends, self.h_fir, ref), rs_st)
-            else:
-                new_state = (tails(x_ends, self.h_fir, ref),
-                             tails(y_ends, self.h_rs, ref))
-            if frames == "a2a":
-                z = to_channel_major(z, mesh)
-            spec = mesh.map(self._frames, z)
-            del z
-            previous = list(issued)
-            if kernels_exchange:
-                issued[:] = [rank.stream.record_event()
-                             for rank in mesh.ranks if not rank.remote]
-            mesh.join()
-            if previous:
-                # with this call's work queued, so that the card stays
-                # busy: wait for the previous call's and raise if one of
-                # its receives timed out
-                check_exchanges(mesh, after=previous)
-            return spec, new_state
+            return z, x_ends, y_ends
+
+        def step(parts: Sequence[torch.Tensor], state):
+            if len(parts) != n:
+                raise ValueError(f"{len(parts)} blocks for {n} ranks")
+            with request("chains", "Channelizer.sharded_step"):
+                fir_st, rs_st = state
+                ref = local_block(parts)
+                with span("parallel", "fork"):
+                    mesh.fork()
+                with span("parallel", "rows"):
+                    z, x_ends, y_ends = rows_step(parts, fir_st, rs_st, ref)
+                with span("parallel", "tails"):
+                    if self.fir_method == "fused":
+                        new_state = (tails(x_ends, self.h_fir, ref), rs_st)
+                    else:
+                        new_state = (tails(x_ends, self.h_fir, ref),
+                                     tails(y_ends, self.h_rs, ref))
+                if frames == "a2a":
+                    z = to_channel_major(z, mesh)
+                spec = mesh.map(self._frames, z)
+                del z
+                previous = list(issued)
+                if kernels_exchange:
+                    issued[:] = [rank.stream.record_event()
+                                 for rank in mesh.ranks if not rank.remote]
+                with span("parallel", "join"):
+                    mesh.join()
+                if previous:
+                    # with this call's work queued, so that the card stays
+                    # busy: wait for the previous call's and raise if one
+                    # of its receives timed out
+                    with span("parallel", "wait_previous"):
+                        check_exchanges(mesh, after=previous)
+                return spec, new_state
 
         return step
 

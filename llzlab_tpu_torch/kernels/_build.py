@@ -19,7 +19,10 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from typing import Callable, Dict
+
+from llzlab_tpu_torch.runtime.profiler import count_build, span
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -64,7 +67,9 @@ def build(name: str) -> str:
     try:
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
                os.path.join(CSRC, f"{name}.cu")]
+        t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
+        count_build(name, time.perf_counter() - t0)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
@@ -79,12 +84,15 @@ def build(name: str) -> str:
 def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; ``declare`` sets the
     ``argtypes``/``restype`` of its entry points (without them ctypes
-    passes each pointer as a 32-bit int)."""
+    passes each pointer as a 32-bit int).  Only a first load has a span
+    (``llz/kernels/build``), and ``runtime.profiler.counters`` counts the
+    builds that ran nvcc."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build(name))
-            declare(lib)
+            with span("kernels", "build"):
+                lib = ctypes.CDLL(build(name))
+                declare(lib)
             _LIBS[name] = lib
         return lib
 

@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from llzlab_tpu_torch.kernels import _build
+from llzlab_tpu_torch.runtime.profiler import span
 
 __all__ = ["supports", "cuda_supports", "row_chunks", "band_k", "bf16_hi_lo",
            "tap_tables", "plain_tables", "mma_rows", "toeplitz_tile",
@@ -285,38 +286,41 @@ def block2_fir_cuda(xpad: torch.Tensor, taps, block: int,
     :func:`row_chunks` chunk (``.launches`` counts each).  Streamed calls
     equal one shot bitwise for cuts at multiples of 8 samples ("high") or
     anywhere ("highest"); see the module docstring."""
-    taps = np.asarray(taps, np.float64)
-    ntaps = len(taps)
-    if not xpad.is_cuda:
-        raise ValueError("block2_fir_cuda needs a CUDA tensor")
-    if xpad.dtype != torch.float32 or xpad.dim() != 2:
-        raise ValueError(f"xpad must be 2-D float32, got {xpad.dtype} "
-                         f"{tuple(xpad.shape)}")
-    if not xpad.is_contiguous():
-        raise ValueError("xpad must be contiguous")
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    b, tp = xpad.shape
-    t = tp - block
-    if not cuda_supports(b, ntaps, block, t):
-        raise ValueError(
-            f"block2 kernel envelope: rows ≥ 1, block % 128 == 0, ntaps − 1 "
-            f"≤ block ≤ 2048, T > 0 (got rows={b}, ntaps={ntaps}, "
-            f"block={block}, T={t}); above 2049 taps fir_filter(method="
-            f"'block2') runs tensor code, and 'ols' is faster")
-    lib = _build.load("block2_fir", _declare)
-    with torch.cuda.device(xpad.device):
-        tabs = tap_tables(taps, mode, xpad.device)
-        y = torch.empty((b, t), dtype=torch.float32, device=xpad.device)
-        for r0, r1 in row_chunks(b, mode):
-            rc = lib.block2_fir_launch(
-                xpad[r0:r1].data_ptr(), tabs[0].data_ptr(),
-                tabs[1].data_ptr() if mode == "high" else None,
-                y[r0:r1].data_ptr(), r1 - r0, t, block, ntaps,
-                int(mode == "high"), torch.cuda.current_stream().cuda_stream)
-            _build.check(rc, "block2_fir")
-            block2_fir_cuda.launches += 1
-    return y
+    with span("kernels", "B2"):
+        taps = np.asarray(taps, np.float64)
+        ntaps = len(taps)
+        if not xpad.is_cuda:
+            raise ValueError("block2_fir_cuda needs a CUDA tensor")
+        if xpad.dtype != torch.float32 or xpad.dim() != 2:
+            raise ValueError(f"xpad must be 2-D float32, got {xpad.dtype} "
+                             f"{tuple(xpad.shape)}")
+        if not xpad.is_contiguous():
+            raise ValueError("xpad must be contiguous")
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        b, tp = xpad.shape
+        t = tp - block
+        if not cuda_supports(b, ntaps, block, t):
+            raise ValueError(
+                f"block2 kernel envelope: rows ≥ 1, block % 128 == 0, "
+                f"ntaps − 1 ≤ block ≤ 2048, T > 0 (got rows={b}, "
+                f"ntaps={ntaps}, block={block}, T={t}); above 2049 taps "
+                f"fir_filter(method='block2') runs tensor code, and 'ols' "
+                f"is faster")
+        lib = _build.load("block2_fir", _declare)
+        with torch.cuda.device(xpad.device):
+            tabs = tap_tables(taps, mode, xpad.device)
+            y = torch.empty((b, t), dtype=torch.float32, device=xpad.device)
+            for r0, r1 in row_chunks(b, mode):
+                rc = lib.block2_fir_launch(
+                    xpad[r0:r1].data_ptr(), tabs[0].data_ptr(),
+                    tabs[1].data_ptr() if mode == "high" else None,
+                    y[r0:r1].data_ptr(), r1 - r0, t, block, ntaps,
+                    int(mode == "high"),
+                    torch.cuda.current_stream().cuda_stream)
+                _build.check(rc, "block2_fir")
+                block2_fir_cuda.launches += 1
+        return y
 
 
 block2_fir_cuda.launches = 0

@@ -47,6 +47,7 @@ from llzlab_tpu_torch.kernels.block2_fir import (MODES, _bf16_split,
 from llzlab_tpu_torch.ops.fir import block2_block
 from llzlab_tpu_torch.ops.resample import (_phase_layout, polyphase_weights,
                                            resample_output_len)
+from llzlab_tpu_torch.runtime.profiler import span
 
 __all__ = [
     "fused_fir_resample",
@@ -266,48 +267,50 @@ def fused_fir_resample_cuda(x: torch.Tensor, hist: torch.Tensor, fir_taps,
                             up: int, down: int, rtaps,
                             mode: str = "high") -> torch.Tensor:
     """Launch kernel B1 on ``torch.cuda.current_stream()``."""
-    fir = np.asarray(fir_taps, np.float64)
-    ntaps = len(fir)
-    k = len(rtaps) // up
-    if not (x.is_cuda and hist.is_cuda and x.device == hist.device):
-        raise ValueError("fused_fir_resample_cuda needs x and hist on one "
-                         "CUDA device")
-    if x.dtype != torch.float32 or hist.dtype != torch.float32:
-        raise ValueError("x and hist must be float32")
-    if x.dim() != 2 or not x.is_contiguous() or not hist.is_contiguous():
-        raise ValueError("x and hist must be contiguous 2-D tensors")
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    b, t = x.shape
-    hl = fused_state_len(ntaps)
-    if tuple(hist.shape) != (b, hl):
-        raise ValueError(f"hist must be {(b, hl)}, got {tuple(hist.shape)}")
-    if not fused_supports(b, ntaps, up, down, k, t):
-        raise ValueError(
-            f"fused kernel envelope: channels % 8 == 0, ntaps − 1 ≤ block ≤ "
-            f"2048, K − 1 ≤ block, T a multiple of "
-            f"{fused_program_in(ntaps, up, down)} (got channels={b}, "
-            f"ntaps={ntaps}, K={k}, T={t})")
-    if not kernel_fits(ntaps, down, k):
-        raise ValueError(
-            f"fused kernel: "
-            f"{max(_smem_bytes(ntaps, down, k, m) for m in MODES)} B of "
-            f"shared memory per block exceeds {_SMEM_MAX} (down={down})")
-    lib = _build.load("fused_fir_resample", _declare)
-    with torch.cuda.device(x.device):
-        tabs = kernel_tables(fir, rtaps, up, down, mode, x.device)
-        z = torch.empty((b, (t // down) * up), dtype=torch.float32,
-                        device=x.device)
-        high = mode == "high"
-        rc = lib.fused_fir_resample_launch(
-            x.data_ptr(), hist.data_ptr(), tabs[0].data_ptr(),
-            tabs[1].data_ptr() if high else None,
-            tabs[2 if high else 1].data_ptr(), None, z.data_ptr(),
-            b, t, hl, ntaps, up, down, k, _run_groups(down, k), int(high),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "fused_fir_resample")
-    fused_fir_resample_cuda.launches += 1
-    return z
+    with span("kernels", "B1"):
+        fir = np.asarray(fir_taps, np.float64)
+        ntaps = len(fir)
+        k = len(rtaps) // up
+        if not (x.is_cuda and hist.is_cuda and x.device == hist.device):
+            raise ValueError("fused_fir_resample_cuda needs x and hist on one "
+                             "CUDA device")
+        if x.dtype != torch.float32 or hist.dtype != torch.float32:
+            raise ValueError("x and hist must be float32")
+        if x.dim() != 2 or not x.is_contiguous() or not hist.is_contiguous():
+            raise ValueError("x and hist must be contiguous 2-D tensors")
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        b, t = x.shape
+        hl = fused_state_len(ntaps)
+        if tuple(hist.shape) != (b, hl):
+            raise ValueError(f"hist must be {(b, hl)}, got "
+                             f"{tuple(hist.shape)}")
+        if not fused_supports(b, ntaps, up, down, k, t):
+            raise ValueError(
+                f"fused kernel envelope: channels % 8 == 0, ntaps − 1 ≤ "
+                f"block ≤ 2048, K − 1 ≤ block, T a multiple of "
+                f"{fused_program_in(ntaps, up, down)} (got channels={b}, "
+                f"ntaps={ntaps}, K={k}, T={t})")
+        if not kernel_fits(ntaps, down, k):
+            raise ValueError(
+                f"fused kernel: "
+                f"{max(_smem_bytes(ntaps, down, k, m) for m in MODES)} B of "
+                f"shared memory per block exceeds {_SMEM_MAX} (down={down})")
+        lib = _build.load("fused_fir_resample", _declare)
+        with torch.cuda.device(x.device):
+            tabs = kernel_tables(fir, rtaps, up, down, mode, x.device)
+            z = torch.empty((b, (t // down) * up), dtype=torch.float32,
+                            device=x.device)
+            high = mode == "high"
+            rc = lib.fused_fir_resample_launch(
+                x.data_ptr(), hist.data_ptr(), tabs[0].data_ptr(),
+                tabs[1].data_ptr() if high else None,
+                tabs[2 if high else 1].data_ptr(), None, z.data_ptr(),
+                b, t, hl, ntaps, up, down, k, _run_groups(down, k), int(high),
+                torch.cuda.current_stream().cuda_stream)
+        _build.check(rc, "fused_fir_resample")
+        fused_fir_resample_cuda.launches += 1
+        return z
 
 
 fused_fir_resample_cuda.launches = 0

@@ -57,6 +57,7 @@ from llzlab_tpu_torch.kernels.block2_fir import (MMA_PASS, MODES,
 from llzlab_tpu_torch.ops.fir import block2_block
 from llzlab_tpu_torch.parallel.halo import left_halo
 from llzlab_tpu_torch.parallel.mesh import DspMesh, local_block, note_traffic
+from llzlab_tpu_torch.runtime.profiler import span
 
 __all__ = ["block2_fir_halo_fused", "block2_fir_halo_fused_cuda",
            "block2_fir_halo_fused_plain", "halo_fused_supports",
@@ -207,52 +208,55 @@ def block2_fir_halo_fused_cuda(parts: Sequence[Optional[torch.Tensor]],
     the ``NET`` branch on one card, not an entry point): on a mesh of one
     process every edge is a ``NET`` edge whose transport is a device copy
     (``HaloExchange(net=True)``)."""
-    taps, block, h = _check(parts, taps, mesh, first_shard_value, mode)
-    b, t = local_block(parts).shape
-    local = [r for r in range(len(parts)) if mesh.local(r)]
-    for r in local:
-        part = parts[r]
-        if not part.is_cuda or part.device != mesh.ranks[r].device:
-            raise ValueError(f"shard {r} must lie on {mesh.ranks[r].device}, "
-                             f"got {part.device}")
-        if part.dtype != torch.float32 or not part.is_contiguous():
-            raise ValueError(f"shards must be contiguous float32, got "
-                             f"{part.dtype} strides {part.stride()} at rank "
-                             f"{r}")
-    lib = library()
-    ex = _hr.HaloExchange.of(mesh, b, h, _net)
-    kinds = ex.kinds
-    epoch = ex.begin(parts)
-    high = mode == "high"
-    none = _hr.Edge(None, None, None)
-    out: List[Optional[torch.Tensor]] = [None] * len(parts)
-    for r in local:
-        with mesh.on(r) as rank:
-            nbr, mine = ex.launch_args(r)
-            nbr, mine = nbr or none, mine or none
-            tabs = tap_tables(taps, mode, rank.device)
-            y = torch.empty((b, t), dtype=torch.float32, device=rank.device)
-            left = mine.buf
-            if r == 0 and first_shard_value is not None:
-                carry = first_shard_value.to(
-                    device=rank.device, dtype=torch.float32).contiguous()
-                left = carry.data_ptr()
-            rc = lib.halo_fir_fused_launch(
-                parts[r].data_ptr(), tabs[0].data_ptr(),
-                tabs[1].data_ptr() if high else None, y.data_ptr(), b, t,
-                block, len(taps), int(high), h, nbr.buf, nbr.flag, left,
-                mine.flag, nbr.counter, nbr.ack, mine.ack, mine.rcount,
-                ex.err_ptr(r), epoch, int(_hr.WAIT_LIMIT_S * 1e9),
-                rank.stream.cuda_stream)
-            _build.check(rc, "halo_fir_fused")
-            ex.launched(r)
-        _hr.count_launch(block2_fir_halo_fused_cuda, mesh,
-                         [_hr.PROTOCOL if k == _hr.DIRECT else k
-                          for k in kinds],
-                         [q for q in (r, r + 1) if 0 < q < len(parts)])
-        out[r] = y
-    note_traffic("collective-permute", 4 * b * h, len(parts) - 1)
-    return out
+    with span("kernels", "B4"):
+        taps, block, h = _check(parts, taps, mesh, first_shard_value, mode)
+        b, t = local_block(parts).shape
+        local = [r for r in range(len(parts)) if mesh.local(r)]
+        for r in local:
+            part = parts[r]
+            if not part.is_cuda or part.device != mesh.ranks[r].device:
+                raise ValueError(f"shard {r} must lie on "
+                                 f"{mesh.ranks[r].device}, got "
+                                 f"{part.device}")
+            if part.dtype != torch.float32 or not part.is_contiguous():
+                raise ValueError(f"shards must be contiguous float32, got "
+                                 f"{part.dtype} strides {part.stride()} "
+                                 f"at rank {r}")
+        lib = library()
+        ex = _hr.HaloExchange.of(mesh, b, h, _net)
+        kinds = ex.kinds
+        epoch = ex.begin(parts)
+        high = mode == "high"
+        none = _hr.Edge(None, None, None)
+        out: List[Optional[torch.Tensor]] = [None] * len(parts)
+        for r in local:
+            with mesh.on(r) as rank:
+                nbr, mine = ex.launch_args(r)
+                nbr, mine = nbr or none, mine or none
+                tabs = tap_tables(taps, mode, rank.device)
+                y = torch.empty((b, t), dtype=torch.float32,
+                                device=rank.device)
+                left = mine.buf
+                if r == 0 and first_shard_value is not None:
+                    carry = first_shard_value.to(
+                        device=rank.device, dtype=torch.float32).contiguous()
+                    left = carry.data_ptr()
+                rc = lib.halo_fir_fused_launch(
+                    parts[r].data_ptr(), tabs[0].data_ptr(),
+                    tabs[1].data_ptr() if high else None, y.data_ptr(), b, t,
+                    block, len(taps), int(high), h, nbr.buf, nbr.flag, left,
+                    mine.flag, nbr.counter, nbr.ack, mine.ack, mine.rcount,
+                    ex.err_ptr(r), epoch, int(_hr.WAIT_LIMIT_S * 1e9),
+                    rank.stream.cuda_stream)
+                _build.check(rc, "halo_fir_fused")
+                ex.launched(r)
+            _hr.count_launch(block2_fir_halo_fused_cuda, mesh,
+                             [_hr.PROTOCOL if k == _hr.DIRECT else k
+                              for k in kinds],
+                             [q for q in (r, r + 1) if 0 < q < len(parts)])
+            out[r] = y
+        note_traffic("collective-permute", 4 * b * h, len(parts) - 1)
+        return out
 
 
 block2_fir_halo_fused_cuda.launches = 0

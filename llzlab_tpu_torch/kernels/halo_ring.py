@@ -132,6 +132,7 @@ from llzlab_tpu_torch.kernels import _build
 from llzlab_tpu_torch.parallel.halo import left_halo
 from llzlab_tpu_torch.parallel.mesh import (TIME_AXIS, DspMesh, local_block,
                                             note_traffic)
+from llzlab_tpu_torch.runtime.profiler import span
 
 __all__ = ["left_halo_ring", "left_halo_ring_cuda", "left_halo_ring_plain",
            "HaloExchange", "check_exchanges", "edge_plan", "mesh_plan",
@@ -735,101 +736,104 @@ def left_halo_ring_cuda(parts: Sequence[Optional[torch.Tensor]], h: int,
     ``_net`` (the same, for the ``NET`` branch): on a mesh of one process,
     each rank alone, every edge a ``NET`` edge whose transport is a device
     copy on the receiving rank's transfer stream."""
-    check_time_mesh(mesh, parts)
-    ranks, n = mesh.ranks, len(mesh)
-    local = [r for r in range(n) if mesh.local(r)]
-    ref = local_block(parts)
-    c, t = ref.shape if ref.dim() == 2 else (0, 0)
-    for r in local:
-        part = parts[r]
-        if not part.is_cuda or part.device != ranks[r].device:
-            raise ValueError(f"shard {r} must lie on {ranks[r].device}, "
-                             f"got {part.device}")
-        if (part.dtype != torch.float32 or tuple(part.shape) != (c, t)
-                or part.stride(1) != 1):
-            raise ValueError(
-                f"shards must be equal-shaped 2-D float32 with unit stride "
-                f"along time, got {part.dtype} {tuple(part.shape)} strides "
-                f"{part.stride()} at rank {r}")
-    if not 0 <= h <= t:
-        raise ValueError(f"halo width {h} outside [0, {t}]")
-    if (first_shard_value is not None
-            and tuple(first_shard_value.shape) != (c, h)):
-        raise ValueError(f"first_shard_value must be {(c, h)}, got "
-                         f"{tuple(first_shard_value.shape)}")
-    out: List[Optional[torch.Tensor]] = [None] * n
-    if c == 0 or h == 0:  # nothing to exchange, nothing launched
+    with span("kernels", "B3"):
+        check_time_mesh(mesh, parts)
+        ranks, n = mesh.ranks, len(mesh)
+        local = [r for r in range(n) if mesh.local(r)]
+        ref = local_block(parts)
+        c, t = ref.shape if ref.dim() == 2 else (0, 0)
         for r in local:
-            out[r] = torch.empty((c, h), dtype=torch.float32,
-                                 device=ranks[r].device)
-        return out
-    alone = _per_rank or _net
-    key = ("halo_ring_layout", alone)
-    if key not in mesh.cache:
-        mesh.cache[key] = mesh_plan(mesh, alone)[0]
-    runs = mesh.cache[key]
-    lib = _build.load("halo_ring", _declare)
-    ex = HaloExchange.of(mesh, c, h, _net)
-    kinds = [PROTOCOL if k == DIRECT and alone else k for k in ex.kinds]
-    epoch = ex.begin(parts)
-    for run in runs:
-        first, last = run[0], run[-1]
-        dev, stream = ranks[first].device, ranks[first].stream
-        others = run[1:]  # whose tensors the launch reads and writes too
-        # the next rank is across an edge that the kernel stores into
-        send = last + 1 < n and kinds[last] != NET
-        # the run's device and its first rank's stream, entered once
-        with torch.cuda.stream(stream):
-            halos = torch.empty((len(run), c, h), dtype=torch.float32,
-                                device=dev)
-            table = (_HaloRank * len(run))()
-            out0 = halos.data_ptr()
-            for i, r in enumerate(run):
-                entry = table[i]
-                entry.out = out0 + 4 * c * h * i
-                if r == 0:
-                    if first_shard_value is not None:
-                        carry = first_shard_value.to(
-                            device=dev, dtype=torch.float32).contiguous()
-                        entry.src, entry.src_stride = carry.data_ptr(), h
-                elif kinds[r - 1] == DIRECT:
-                    # the left neighbour's tails
-                    entry.src = parts[r - 1].data_ptr() + 4 * (t - h)
-                    entry.src_stride = parts[r - 1].stride(0)
-                else:  # through the receive buffer
-                    e = ex.edge(r)
-                    entry.src, entry.flag, entry.src_stride = e.buf, e.flag, h
-                    entry.err, entry.ack, entry.rcount = (ex.err_ptr(r),
-                                                          e.ack, e.rcount)
-            nbr = Edge(None, None, None)
-            if send:
-                nbr = ex.edge(last + 1)
-                ex.before_send(last, stream)
+            part = parts[r]
+            if not part.is_cuda or part.device != ranks[r].device:
+                raise ValueError(f"shard {r} must lie on {ranks[r].device}, "
+                                 f"got {part.device}")
+            if (part.dtype != torch.float32 or tuple(part.shape) != (c, t)
+                    or part.stride(1) != 1):
+                raise ValueError(
+                    f"shards must be equal-shaped 2-D float32 with unit "
+                    f"stride along time, got {part.dtype} "
+                    f"{tuple(part.shape)} strides {part.stride()} at rank "
+                    f"{r}")
+        if not 0 <= h <= t:
+            raise ValueError(f"halo width {h} outside [0, {t}]")
+        if (first_shard_value is not None
+                and tuple(first_shard_value.shape) != (c, h)):
+            raise ValueError(f"first_shard_value must be {(c, h)}, got "
+                             f"{tuple(first_shard_value.shape)}")
+        out: List[Optional[torch.Tensor]] = [None] * n
+        if c == 0 or h == 0:  # nothing to exchange, nothing launched
+            for r in local:
+                out[r] = torch.empty((c, h), dtype=torch.float32,
+                                     device=ranks[r].device)
+            return out
+        alone = _per_rank or _net
+        key = ("halo_ring_layout", alone)
+        if key not in mesh.cache:
+            mesh.cache[key] = mesh_plan(mesh, alone)[0]
+        runs = mesh.cache[key]
+        lib = _build.load("halo_ring", _declare)
+        ex = HaloExchange.of(mesh, c, h, _net)
+        kinds = [PROTOCOL if k == DIRECT and alone else k for k in ex.kinds]
+        epoch = ex.begin(parts)
+        for run in runs:
+            first, last = run[0], run[-1]
+            dev, stream = ranks[first].device, ranks[first].stream
+            others = run[1:]  # whose tensors the launch reads and writes too
+            # the next rank is across an edge that the kernel stores into
+            send = last + 1 < n and kinds[last] != NET
+            # the run's device and its first rank's stream, entered once
+            with torch.cuda.stream(stream):
+                halos = torch.empty((len(run), c, h), dtype=torch.float32,
+                                    device=dev)
+                table = (_HaloRank * len(run))()
+                out0 = halos.data_ptr()
+                for i, r in enumerate(run):
+                    entry = table[i]
+                    entry.out = out0 + 4 * c * h * i
+                    if r == 0:
+                        if first_shard_value is not None:
+                            carry = first_shard_value.to(
+                                device=dev, dtype=torch.float32).contiguous()
+                            entry.src, entry.src_stride = carry.data_ptr(), h
+                    elif kinds[r - 1] == DIRECT:
+                        # the left neighbour's tails
+                        entry.src = parts[r - 1].data_ptr() + 4 * (t - h)
+                        entry.src_stride = parts[r - 1].stride(0)
+                    else:  # through the receive buffer
+                        e = ex.edge(r)
+                        entry.src, entry.flag = e.buf, e.flag
+                        entry.src_stride = h
+                        entry.err, entry.ack, entry.rcount = (ex.err_ptr(r),
+                                                              e.ack, e.rcount)
+                nbr = Edge(None, None, None)
+                if send:
+                    nbr = ex.edge(last + 1)
+                    ex.before_send(last, stream)
+                for r in others:
+                    stream.wait_event(ranks[r].mark())
+                rc = lib.halo_ring_launch(
+                    table, len(run), c, h,
+                    parts[last].data_ptr() if send else None,
+                    parts[last].stride(0), t, nbr.buf, nbr.flag, nbr.counter,
+                    nbr.ack, ex.err_ptr(last), epoch, int(WAIT_LIMIT_S * 1e9),
+                    stream.cuda_stream)
+                _build.check(rc, "halo_ring")
+                count_launch(left_halo_ring_cuda, mesh, kinds,
+                             [r for r in (first, last + 1) if 0 < r < n])
+                if table[0].flag:  # the next send into this buffer waits for
+                    done = stream.record_event()  # this: an event that is kept
+                    ex.launched(first, done)
+                else:
+                    done = ranks[first].mark()
             for r in others:
-                stream.wait_event(ranks[r].mark())
-            rc = lib.halo_ring_launch(
-                table, len(run), c, h,
-                parts[last].data_ptr() if send else None,
-                parts[last].stride(0), t, nbr.buf, nbr.flag, nbr.counter,
-                nbr.ack, ex.err_ptr(last), epoch, int(WAIT_LIMIT_S * 1e9),
-                stream.cuda_stream)
-            _build.check(rc, "halo_ring")
-            count_launch(left_halo_ring_cuda, mesh, kinds,
-                         [r for r in (first, last + 1) if 0 < r < n])
-            if table[0].flag:  # the next send into this buffer waits for
-                done = stream.record_event()  # this: an event that is kept
-                ex.launched(first, done)
-            else:
-                done = ranks[first].mark()
-        for r in others:
-            ranks[r].stream.wait_event(done)
-            # the halos were allocated under the first rank's stream: keep
-            # their memory from reuse there while rank r may still read it
-            halos.record_stream(ranks[r].stream)
-        for r, halo in zip(run, halos.unbind(0)):
-            out[r] = halo
-    note_traffic("collective-permute", 4 * c * h, n - 1)
-    return out
+                ranks[r].stream.wait_event(done)
+                # the halos were allocated under the first rank's stream: keep
+                # their memory from reuse there while rank r may still read it
+                halos.record_stream(ranks[r].stream)
+            for r, halo in zip(run, halos.unbind(0)):
+                out[r] = halo
+        note_traffic("collective-permute", 4 * c * h, n - 1)
+        return out
 
 
 left_halo_ring_cuda.launches = 0

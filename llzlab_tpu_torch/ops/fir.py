@@ -47,6 +47,7 @@ from llzlab_tpu_torch.kernels import block2_fir as _bf
 from llzlab_tpu_torch.ops import transform as _tf
 from llzlab_tpu_torch.ops.window import get_window
 from llzlab_tpu_torch.runtime.platform import kernel_mode
+from llzlab_tpu_torch.runtime.profiler import span
 
 __all__ = [
     "firwin",
@@ -519,30 +520,31 @@ def fir_filter(
     rounding, not bit for bit (the library product's sum order may follow
     the number of blocks).
     """
-    taps_host = np.asarray(
-        taps.detach().cpu().numpy() if isinstance(taps, torch.Tensor)
-        else taps, np.float64)
-    ntaps = len(taps_host)
-    method = resolve_method(method, ntaps)
-    if spectral not in SPECTRAL:
-        raise ValueError(f"unknown spectral engine {spectral!r}; one of "
-                         f"{SPECTRAL}")
-    if nfft is None:
-        nfft = default_nfft(ntaps)
-    if nfft < 2 * ntaps:
-        raise ValueError(f"nfft={nfft} too small for ntaps={ntaps}")
-    hlen = fir_state_len(ntaps, nfft, method)
-    if method == "block2":
-        return _filter(x, zi, hlen, hlen - (ntaps - 1), return_zf,
-                       _block2_engine(taps_host, hlen, kernel_mode()))
-    if method == "im2col":
-        tap_mat = _toeplitz_matrix(taps_host, IM2COL_BLOCK, x.device)
+    with span("ops", "fir_filter"):
+        taps_host = np.asarray(
+            taps.detach().cpu().numpy() if isinstance(taps, torch.Tensor)
+            else taps, np.float64)
+        ntaps = len(taps_host)
+        method = resolve_method(method, ntaps)
+        if spectral not in SPECTRAL:
+            raise ValueError(f"unknown spectral engine {spectral!r}; one of "
+                             f"{SPECTRAL}")
+        if nfft is None:
+            nfft = default_nfft(ntaps)
+        if nfft < 2 * ntaps:
+            raise ValueError(f"nfft={nfft} too small for ntaps={ntaps}")
+        hlen = fir_state_len(ntaps, nfft, method)
+        if method == "block2":
+            return _filter(x, zi, hlen, hlen - (ntaps - 1), return_zf,
+                           _block2_engine(taps_host, hlen, kernel_mode()))
+        if method == "im2col":
+            tap_mat = _toeplitz_matrix(taps_host, IM2COL_BLOCK, x.device)
+            return _filter(x, zi, hlen, 0, return_zf,
+                           lambda xpad: _im2col_filter(xpad, tap_mat,
+                                                       IM2COL_BLOCK))
+        taps_dev = _taps_cached(taps_host.tobytes(), str(x.device))
+        if method == "direct":
+            return _filter(x, zi, hlen, 0, return_zf,
+                           lambda xpad: _direct_filter(xpad, taps_dev))
         return _filter(x, zi, hlen, 0, return_zf,
-                       lambda xpad: _im2col_filter(xpad, tap_mat,
-                                                   IM2COL_BLOCK))
-    taps_dev = _taps_cached(taps_host.tobytes(), str(x.device))
-    if method == "direct":
-        return _filter(x, zi, hlen, 0, return_zf,
-                       lambda xpad: _direct_filter(xpad, taps_dev))
-    return _filter(x, zi, hlen, 0, return_zf,
-                   lambda xpad: _ols_filter(xpad, taps_dev, nfft, hlen))
+                       lambda xpad: _ols_filter(xpad, taps_dev, nfft, hlen))

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from llzlab_tpu_torch.ops import transform as _tf
 from llzlab_tpu_torch.ops.fir import firwin
 from llzlab_tpu_torch.ops.window import get_window
+from llzlab_tpu_torch.runtime.profiler import span
 
 __all__ = [
     "resample_taps",
@@ -207,17 +208,18 @@ def resample_poly(
 
     Streaming is exact when each fed block has ``T % down == 0``.
     """
-    g = math.gcd(up, down)
-    up, down = up // g, down // g
-    if up == down == 1 and taps is None:
-        return ((x, x.new_zeros(x.shape[:-1] + (0,))) if return_zf else x)
-    if taps is None:
-        taps = resample_taps(up, down, taps_per_phase, window=window)
-    taps = np.asarray(taps, dtype=np.float64)
-    if len(taps) % up != 0:
-        taps = np.pad(taps, (0, up - len(taps) % up))
-    k = len(taps) // up
-    w = _weights_cached(taps.tobytes(), up, down, str(x.device))
-    return _resample_impl(
-        x, w, zi, up=up, down=down, k=k, return_zf=return_zf
-    )
+    with span("ops", "resample_poly"):
+        g = math.gcd(up, down)
+        up, down = up // g, down // g
+        if up == down == 1 and taps is None:
+            return ((x, x.new_zeros(x.shape[:-1] + (0,))) if return_zf else x)
+        if taps is None:
+            taps = resample_taps(up, down, taps_per_phase, window=window)
+        taps = np.asarray(taps, dtype=np.float64)
+        if len(taps) % up != 0:
+            taps = np.pad(taps, (0, up - len(taps) % up))
+        k = len(taps) // up
+        w = _weights_cached(taps.tobytes(), up, down, str(x.device))
+        return _resample_impl(
+            x, w, zi, up=up, down=down, k=k, return_zf=return_zf
+        )

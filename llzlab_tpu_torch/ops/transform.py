@@ -26,6 +26,7 @@ from llzlab_tpu_torch.runtime.platform import (  # noqa: F401
     matmul_precision_name,
     precision_scope,
 )
+from llzlab_tpu_torch.runtime.profiler import span
 
 __all__ = ["fft", "ifft", "rfft", "irfft", "rfft_pair", "pair_to_complex",
            "precision_scope", "matmul_precision_name"]
@@ -51,7 +52,8 @@ def ifft(x: torch.Tensor, n: Optional[int] = None, *, method: str = "auto"):
 
 def rfft(x: torch.Tensor, n: Optional[int] = None, *, method: str = "auto"):
     _check_method(method)
-    return torch.fft.rfft(x, n=n or x.shape[-1], dim=-1)
+    with span("ops", "rfft"):
+        return torch.fft.rfft(x, n=n or x.shape[-1], dim=-1)
 
 
 def irfft(x: torch.Tensor, n: Optional[int] = None, *, method: str = "auto"):
@@ -71,8 +73,9 @@ def rfft_pair(x: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
         n = x.shape[-1]
     if n % 2:
         raise ValueError(f"rfft_pair needs an even n, got {n}")
-    spec = torch.fft.rfft(x.to(torch.float32), n=n, dim=-1)
-    return torch.cat([spec.real, spec.imag], dim=-1)
+    with span("ops", "rfft_pair"):
+        spec = torch.fft.rfft(x.to(torch.float32), n=n, dim=-1)
+        return torch.cat([spec.real, spec.imag], dim=-1)
 
 
 def pair_to_complex(spec: torch.Tensor) -> torch.Tensor:

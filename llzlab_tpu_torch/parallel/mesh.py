@@ -47,9 +47,9 @@ point-to-point sends.  Every process walks the same exchanges in the same
 order, so the sends and receives pair up.
 
 Traffic.  Each exchange between ranks notes its bytes
-(:func:`note_traffic`), in the JAX package's kinds; inside
-:func:`record_traffic` (``utils.profiling.collective_traffic``) the notes
-are kept.
+(:func:`note_traffic`), in the JAX package's kinds: always into the running
+totals of ``runtime.profiler.counters``, and inside :func:`record_traffic`
+(``utils.profiling.collective_traffic``) as notes of their own.
 """
 
 from __future__ import annotations
@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from llzlab_tpu_torch.runtime.platform import require_cuda
+from llzlab_tpu_torch.runtime.profiler import count_traffic
 
 __all__ = [
     "CHANNEL_AXIS",
@@ -99,9 +100,13 @@ def note_traffic(op: str, bytes_per_device: int, sends: int) -> None:
     (a ``collective-permute`` counts its pairs; the other kinds their
     participants, summed over the groups, as the JAX package's
     ``collective_traffic`` counts them)."""
+    if sends <= 0:
+        return
+    nbytes = int(bytes_per_device * sends)
+    count_traffic(op, nbytes)
     notes = _TRAFFIC.get()
-    if notes is not None and sends > 0:
-        notes.append({"op": op, "bytes": int(bytes_per_device * sends),
+    if notes is not None:
+        notes.append({"op": op, "bytes": nbytes,
                       "bytes_per_device": int(bytes_per_device)})
 
 

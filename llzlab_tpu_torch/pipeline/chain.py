@@ -31,6 +31,7 @@ from llzlab_tpu_torch.ops import resample as _resample
 from llzlab_tpu_torch.ops import spectral as _stft
 from llzlab_tpu_torch.ops import transform as _fft
 from llzlab_tpu_torch.runtime.platform import precision_scope
+from llzlab_tpu_torch.runtime.profiler import request, span
 
 __all__ = [
     "Stage",
@@ -441,11 +442,13 @@ class Chain:
                      for st in self.stages)
 
     def apply(self, x: torch.Tensor, state):
-        new_state = []
-        for st, s in zip(self.stages, state):
-            x, s = st.apply(x, s)
-            new_state.append(s)
-        return x, tuple(new_state)
+        with request("pipeline", "Chain.apply"):
+            new_state = []
+            for st, s in zip(self.stages, state):
+                with span("pipeline", type(st).__name__):
+                    x, s = st.apply(x, s)
+                new_state.append(s)
+            return x, tuple(new_state)
 
     def __call__(self, x: torch.Tensor):
         y, _ = self.apply(x, self.init_state(x.shape[:-1], device=x.device,

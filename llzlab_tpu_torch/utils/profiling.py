@@ -94,12 +94,15 @@ class StageTimer:
 def trace(logdir: str):
     """Record ``torch.profiler`` activity of the enclosed calls (CPU, and
     CUDA where a card is visible) and write it as a Chrome trace,
-    ``logdir/trace.json``, viewable in Perfetto or ``chrome://tracing``."""
+    ``logdir/trace.json``, viewable in Perfetto or ``chrome://tracing``.
+    The program's spans (``runtime.profiler.span``) are in it beside the
+    card's work, with the operators' input shapes and each request's
+    call number (``record_shapes``)."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 

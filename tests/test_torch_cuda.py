@@ -955,3 +955,33 @@ def test_halo_kernels_between_two_processes_of_one_card(tmp_path):
             assert "never arrived" in r["late_sender"], r["late_sender"]
         else:
             assert r["late_sender"] == "no error"
+
+
+@pytest.mark.cuda
+def test_spans_on_the_card_are_not_device_work():
+    """A stream block of config 1's shape under ``profile_calls``: the
+    program's spans are on the host's timeline, B2 and the history's
+    ``cat`` are the only device work, and a card's busy time is at most
+    its event time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from llzlab_tpu_torch.pipeline.chain import Chain, FIRStage
+    from llzlab_tpu_torch.runtime import profiler
+
+    chain = Chain([FIRStage(firwin(1024, 0.25), method="auto")])
+    state = [chain.init_state((1,), device="cuda")]
+    x = torch.randn(1, 4096, device="cuda")
+
+    def block():
+        _, state[0] = chain.apply(x, state[0])
+
+    block()
+    n = bf.block2_fir_cuda.launches
+    calls = profiler.counters()["calls"]["Chain.apply"]
+    prof = profiler.profile_calls(block, iters=4)
+    assert bf.block2_fir_cuda.launches == n + 4
+    assert profiler.counters()["calls"]["Chain.apply"] == calls + 4
+    assert not any(name.startswith("llz/") for name, _, _ in prof.rows)
+    assert prof.kernels == 2.0 and prof.copies == 0.0
+    assert 0.0 < prof.busy_by_device[0] <= prof.busy_ms + 1e-9
+    assert 0.0 <= prof.idle_pct < 100.0
