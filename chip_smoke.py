@@ -182,11 +182,11 @@ SHARDED_FLOOR_DB = 140.0
 #: HBM3
 FP32_PEAK, BF16_PEAK, HBM_RATE = 67e12, 989e12, 3.35e12
 #: what the previous versions of the kernels read in this script on an H100
-#: 80GB HBM3 at 700 W (PERF.md), printed beside the new readings: B1 and B3
-#: before their second design, B2 and B4 before "high" moved to the tensor
-#: cores
+#: 80GB HBM3 at 700 W (PERF.md), printed beside the new readings: B1 at
+#: "highest" and B3 before their second design, B1 at "high" before wgmma,
+#: B2 and B4 before "high" moved to the tensor cores
 PREVIOUS = {
-    "fused_fir_resample ms": {"highest": 1.301, "high": 2.771},
+    "fused_fir_resample ms": {"highest": 1.301, "high": 0.529},
     "fused_fir_resample SNR dB": {"highest": 134.1, "high": 104.2},
     "fused chain SNR dB": {"highest": 134.0, "high": 104.7},
     "halo_ring ms": {"highest": 0.231}, "halo_ring host ms": 0.289,

@@ -56,6 +56,11 @@
 //   * the run of GS groups is sized by the caller so that its y window
 //     (GS*down + K-1 samples and 7 of alignment) just fits whole passes of
 //     STEP outputs.
+// Where the shape allows it (down a multiple of 16, the working set in
+// shared memory: wg_geometry), "high" does not run the block above but a
+// persistent, warp-specialised kernel with both stages on wgmma
+// (fused_high_wgmma_kernel, fir_wgmma.cuh), 2.2x as fast at the headline;
+// the mma.sync block stays for the other shapes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,6 +68,7 @@
 
 #include "fir_mma.cuh"
 #include "fir_tile.cuh"
+#include "fir_wgmma.cuh"
 
 namespace {
 
@@ -387,6 +393,358 @@ fused_high_kernel(const float* __restrict__ x, const float* __restrict__ hist,
                      up, down, k, geo.k2, tid, THREADS_HIGH);
 }
 
+// ---- "high" on wgmma: persistent, warp-specialised -------------------------
+// Where its working set fits (wg_geometry), "high" runs here: one block an
+// SM for the whole launch, two consumer warpgroups and a producer
+// warpgroup of which one warp works (setmaxnreg gives the consumers 232
+// registers a thread and leaves the producer 40).
+//   * a unit is one run of gs output groups of one channel, and its y
+//     window is FIR_WG_LY = 8192 outputs from a multiple of 64 of the
+//     stream index (fir_wgmma.cuh's sum order); block i takes units i,
+//     i + grid, ..., its consumer warpgroups taking every other one;
+//   * the block stages the tap tables (hi, lo) and the chunks of stage 2's
+//     bank that its n-tiles visit once;
+//   * the producer warp fetches each unit's x window in f32, ahead, into a
+//     ring of two stages (half a window each) with bulk copies
+//     (cp.async.bulk, an mbarrier per stage and consumer for "full", one
+//     per stage for "empty"); history below index 0 comes from hist, zeros
+//     outside both are stored by the warp;
+//   * a consumer splits the window into its bf16 planes, releases the
+//     stages, runs the product on wgmma (fir_wg_product), stores y in bf16
+//     hi / lo over its planes and runs stage 2 (wg_resample) from there;
+//     the two consumers take turns at the products, so that one's products
+//     run while the other splits, stores and runs stage 2.
+// Stage 2 is resample_stage_mma's dense slab product, z^T = R * slab^T, on
+// wgmma too: A, 64 phases by 16 taus, in registers from the resident bank
+// (two neighbouring n-tiles' B fragments are one A fragment); B, the slab's
+// 16 taus by 64 groups, through a descriptor from y, which is kept in
+// down / 8 planes of 8-sample rows so that rows down apart are rows of one
+// core matrix (down a multiple of 16).  On mma.sync it took a third of the
+// kernel's time.
+constexpr int WG_CONSUMERS = 2;
+constexpr int WG_THREADS = (WG_CONSUMERS + 1) * 128;
+constexpr int WG_GB = 64;  // stage 2: groups a product (wgmma N)
+constexpr int WG_KB = 3;   //          chunks a wait
+
+// Chunks (16 taus) of the dense bank that n-tile nt (phases 8 nt .. 8 nt +
+// 7) reaches: row p of R is zero outside tau = (p*down)/up + [0, k).
+__host__ __device__ __forceinline__ int wg_ks_lo(int nt, int up, int down) {
+  return (8 * nt * down / up) / 16;
+}
+__host__ __device__ __forceinline__ int wg_ks_hi(int nt, int up, int down,
+                                                 int k) {
+  const int p = 8 * nt + 7 < up - 1 ? 8 * nt + 7 : up - 1;
+  return (p * down / up + k - 1) / 16;
+}
+
+// Mirrored by _wgmma_smem_bytes in kernels/fused_fir_resample.py:
+//   gs  = (8192 - 63 - (k-1)) / down  groups a unit (at least 1; down a
+//         multiple of 16)
+//   kt  = ntaps + 63 rounded up to 16; nd = kt/8 + 7
+//   lx  = 8192 + kt - 64 rounded up to 64; las = lx/64, made odd
+//   nt  = up rounded up to 8, over 8; nv = the sum over n-tiles of the
+//         chunks each reaches (wg_ks_hi - wg_ks_lo + 1)
+//   np  = down / 8; k2 = down + k-1 rounded up to 16
+//   la  = max(1029 / np, 64 * (gs rounded up to 64, over 64) - 1
+//         + (8 + k2/8) / np) + 1, made odd
+//   cw  = max(2 * 128 * las, 2 * 16 * np * la)   (x planes | y planes)
+//   smem = 128 + 2 * 128 * nd + 4 * lx + (4 * nt rounded up to 16)
+//          + 512 * nv + 2 * cw
+//   (barriers, tap tables, the ring of two half windows, the bank's
+//   offsets and chunks, then each consumer's x planes or y planes)
+struct WgGeometry {
+  int kt, nd, lx, las, nks, ntiles, np, la;
+  uint32_t inv;                          // ceil(2^32 / np)
+  int taps, ring, offs, bank, cons, cw;  // byte offsets, a consumer's bytes
+  size_t smem;
+};
+
+WgGeometry wg_geometry(int ntaps, int up, int down, int k, int gs) {
+  WgGeometry g;
+  g.kt = fir_wg_kt(ntaps);
+  g.nd = fir_wg_cores(g.kt);
+  g.lx = fir_wg_lx(g.kt);
+  g.las = fir_wg_plane_rows(g.kt);
+  g.nks = (down + k - 1 + 15) / 16;
+  g.ntiles = (up + 7) / 8;
+  g.np = down / 8;
+  g.inv = (uint32_t)(0xFFFFFFFFu / (uint32_t)g.np) + 1u;
+  const int ydata = 1029 / g.np;  // y and its zeroed tail: 8240 samples
+  const int reach = WG_GB * ((gs + WG_GB - 1) / WG_GB) - 1 +
+                    (8 + 2 * g.nks) / g.np;
+  g.la = ((ydata > reach ? ydata : reach) + 1) | 1;
+  int nv = 0;
+  for (int nt = 0; nt < g.ntiles; ++nt)
+    nv += wg_ks_hi(nt, up, down, k) - wg_ks_lo(nt, up, down) + 1;
+  const int xp = 2 * 128 * g.las, yp = 2 * 16 * g.np * g.la;
+  g.cw = xp > yp ? xp : yp;
+  g.taps = 128;
+  g.ring = g.taps + 2 * 128 * g.nd;
+  g.offs = g.ring + 4 * g.lx;
+  g.bank = g.offs + (4 * g.ntiles + 15) / 16 * 16;
+  g.cons = g.bank + 512 * nv;
+  g.smem = (size_t)g.cons + (size_t)WG_CONSUMERS * g.cw;
+  return g;
+}
+
+// Origin of a unit's y window: s0*down - (k-1) rounded down to a multiple
+// of 64.
+__device__ __forceinline__ int wg_window_origin(int s0, int down, int k,
+                                                int* a) {
+  const int first = s0 * down - (k - 1);
+  *a = ((first % FIR_WG_PH) + FIR_WG_PH) % FIR_WG_PH;
+  return first - *a;
+}
+
+// Stream samples [s, s + n) of one row into dst: bulk copies of what lies in
+// hist (from -hl) and in x (below t), zeros elsewhere, then the warp's 32
+// arrivals on full, the first with the copies' bytes.  bulk == 0 (an
+// unaligned x or hist) loads every sample with the warp instead.
+__device__ __forceinline__ void wg_fill(float* dst, uint64_t* full,
+                                        const float* __restrict__ xr,
+                                        const float* __restrict__ hr, int s,
+                                        int n, int t, int hl, int bulk,
+                                        int lane) {
+  const int e = s + n;
+  const int h0 = max(s, -hl), h1 = min(e, 0);
+  const int x0 = max(s, 0), x1 = min(e, t);
+  uint32_t bytes = 0;
+  if (bulk) {
+    for (int i = s + lane; i < min(e, -hl); i += 32) dst[i - s] = 0.f;
+    for (int i = max(s, t) + lane; i < e; i += 32) dst[i - s] = 0.f;
+    if (h1 > h0) bytes += 4u * (h1 - h0);
+    if (x1 > x0) bytes += 4u * (x1 - x0);
+  } else {
+    for (int i = lane; i < n; i += 32)
+      dst[i] = stream_sample(xr, hr, s + i, t, hl);
+  }
+  fir_wg_fence_async();
+  __syncwarp();
+  if (lane != 0) {
+    fir_wg_bar_arrive(full);
+  } else if (bytes == 0) {
+    fir_wg_bar_arrive(full);
+  } else {
+    fir_wg_bar_arrive_tx(full, bytes);
+    if (h1 > h0)
+      fir_wg_bulk_load(dst + (h0 - s), hr + hl + h0, 4u * (h1 - h0), full);
+    if (x1 > x0)
+      fir_wg_bulk_load(dst + (x0 - s), xr + x0, 4u * (x1 - x0), full);
+  }
+}
+
+// Stage 2 of a unit by one consumer warpgroup: z[g][p] = sum_tau y_loc[a +
+// g*down + tau] * R[p][tau] for its ng groups, y_loc[i] in the planes at
+// fir_wg_yplane(i + ys - a), ys = a plus the store's shift, a multiple of
+// 16.  For each 64 groups and 64 phases: the chunks that the 64 phases
+// reach, three products each into one accumulator (r_hi * y_hi, r_hi *
+// y_lo, r_lo * y_hi: the sum order of resample_stage_mma), warp w's A
+// fragment, phases 16w .. 16w + 15, from n-tiles 2w and 2w + 1 of the
+// bank, zero where an n-tile does not reach the chunk.  B's columns past
+// ng read whatever the planes hold; their outputs are not stored.  As
+// for fir_wg_product, y is written and fenced (fir_wg_fence_async) and the
+// warpgroup has synchronised before the call.
+__device__ __forceinline__ void wg_resample(
+    const __nv_bfloat16* yh, const __nv_bfloat16* yl, const uint4* sbank,
+    const int* soff, float* __restrict__ zr, int ys, int ng, int up,
+    int down, int k, int np, int la, int wtid) {
+  const int lane = wtid & 31, warp = wtid >> 5;
+  const int ntiles = (up + 7) / 8;
+  const uint32_t y_hi = fir_wg_smem(yh), y_lo = fir_wg_smem(yl);
+  const uint32_t lbo = (uint32_t)la * 16;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int gb = 0; gb < ng; gb += WG_GB) {
+    for (int pt = 0; 64 * pt < up; ++pt) {
+      const int klo = wg_ks_lo(8 * pt, up, down);
+      const int khi = wg_ks_hi(min(8 * pt + 7, ntiles - 1), up, down, k);
+      const int n0 = 8 * pt + 2 * warp, n1 = n0 + 1;
+      int lo0 = 1, hi0 = 0, base0 = 0, lo1 = 1, hi1 = 0, base1 = 0;
+      if (n0 < ntiles) {
+        lo0 = wg_ks_lo(n0, up, down);
+        hi0 = wg_ks_hi(n0, up, down, k);
+        base0 = soff[n0] - lo0;
+      }
+      if (n1 < ntiles) {
+        lo1 = wg_ks_lo(n1, up, down);
+        hi1 = wg_ks_hi(n1, up, down, k);
+        base1 = soff[n1] - lo1;
+      }
+      float acc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      // core matrix (groups 8gj.., taus 8kj..) at plane q % np, row q / np +
+      // gb + 8gj, q = ys/8 + kj: the next kj is the next plane (q even, np
+      // even), the next 8 groups 8 rows on; (plane, row) of chunk ks steps
+      // by two planes a chunk
+      int plane = (ys / 8 + 2 * klo) % np, row = (ys / 8 + 2 * klo) / np;
+      // WG_KB chunks a wait, each with A registers of its own (the A
+      // registers are read while the products run); a chunk past khi
+      // multiplies zeros by chunk khi's y, so nothing branches around a
+      // product
+      for (int k0 = klo; k0 <= khi; k0 += WG_KB) {
+        uint32_t rh[WG_KB][4], rl[WG_KB][4];
+        uint64_t dh[WG_KB], dl[WG_KB];
+#pragma unroll
+        for (int b = 0; b < WG_KB; ++b) {
+          const int ks = k0 + b;
+          const uint4 f0 =
+              ks >= lo0 && ks <= hi0 ? sbank[(base0 + ks) * 32 + lane] : zero;
+          const uint4 f1 =
+              ks >= lo1 && ks <= hi1 ? sbank[(base1 + ks) * 32 + lane] : zero;
+          rh[b][0] = f0.x, rh[b][1] = f1.x, rh[b][2] = f0.y, rh[b][3] = f1.y;
+          rl[b][0] = f0.z, rl[b][1] = f1.z, rl[b][2] = f0.w, rl[b][3] = f1.w;
+          const uint32_t boff = (uint32_t)((plane * la + row + gb) * 16);
+          dh[b] = fir_wg_desc(y_hi + boff, lbo, 128);
+          dl[b] = fir_wg_desc(y_lo + boff, lbo, 128);
+          if (ks < khi) {
+            plane += 2;
+            if (plane >= np) plane -= np, ++row;
+          }
+        }
+        fir_wg_fence();
+#pragma unroll
+        for (int b = 0; b < WG_KB; ++b) {
+          fir_wg_mma_rs(acc, rh[b], dh[b], k0 + b > klo);  // r_hi * y_hi
+          fir_wg_mma_rs(acc, rh[b], dl[b], 1);             // r_hi * y_lo
+          fir_wg_mma_rs(acc, rl[b], dh[b], 1);             // r_lo * y_hi
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+      // acc[4i + 2h + e]: phase 64pt + 16w + l/4 + 8h, group gb + 8i +
+      // 2 (l%4) + e
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int p = 64 * pt + 16 * warp + (lane >> 2) + 8 * ((j >> 1) & 1);
+        const int g = gb + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+        if (p < up && g < ng) zr[(size_t)g * up + p] = acc[j];
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(WG_THREADS, 1)
+fused_high_wgmma_kernel(const float* __restrict__ x,
+                        const float* __restrict__ hist,
+                        const uint4* __restrict__ taps_tab,
+                        const uint4* __restrict__ bank,
+                        float* __restrict__ z, int t, int hl, int up,
+                        int down, int k, int gs, int s_total, int nruns,
+                        int units, int bulk, WgGeometry geo) {
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [consumer][stage]
+  uint64_t* empty = full + 2 * WG_CONSUMERS;            // [stage]
+  __nv_bfloat16* ah = reinterpret_cast<__nv_bfloat16*>(smem + geo.taps);
+  __nv_bfloat16* al = ah + FIR_WG_CORE * geo.nd;
+  float* ring = reinterpret_cast<float*>(smem + geo.ring);
+  int* soff = reinterpret_cast<int*>(smem + geo.offs);
+  uint4* sbank = reinterpret_cast<uint4*>(smem + geo.bank);
+  const int half = geo.lx / 2;
+  const int tid = threadIdx.x;
+
+  {
+    const int nw = 2 * geo.nd * FIR_WG_CORE / 8;  // uint4 words
+    uint4* dst = reinterpret_cast<uint4*>(ah);
+    for (int i = tid; i < nw; i += WG_THREADS) dst[i] = taps_tab[i];
+    int off = 0;  // the chunks each n-tile reaches, in order
+    for (int nt = 0; nt < geo.ntiles; ++nt) {
+      const int lo = wg_ks_lo(nt, up, down);
+      const int n = wg_ks_hi(nt, up, down, k) - lo + 1;
+      if (tid == 0) soff[nt] = off;
+      const uint4* src = bank + ((size_t)nt * geo.nks + lo) * 32;
+      for (int i = tid; i < n * 32; i += WG_THREADS)
+        sbank[off * 32 + i] = src[i];
+      off += n;
+    }
+  }
+  if (tid == 0) {
+    for (int i = 0; i < 2 * WG_CONSUMERS; ++i) fir_wg_bar_init(full + i, 32);
+    for (int i = 0; i < 2; ++i) fir_wg_bar_init(empty + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  fir_wg_fence_async();
+  __syncthreads();
+
+  const int c = tid >> 7;  // consumer warpgroup, or WG_CONSUMERS: producer
+  if (c == WG_CONSUMERS) {
+    // ---- producer: its first warp fetches every unit's window ahead -----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int lane = tid & 31;
+    int j = 0;
+    for (int u = blockIdx.x; u < units && tid < 128 * WG_CONSUMERS + 32;
+         u += gridDim.x, ++j) {
+      const int b = u / nruns, s0 = (u - b * nruns) * gs;
+      int a;
+      const int m0 = wg_window_origin(s0, down, k, &a) - (geo.kt - FIR_WG_PH);
+      for (int p = 0; p < 2; ++p) {
+        fir_wg_bar_wait(empty + p, (j & 1) ^ 1);
+        wg_fill(ring + p * half, full + 2 * (j % WG_CONSUMERS) + p,
+                x + (size_t)b * t, hist + (size_t)b * hl, m0 + p * half, half,
+                t, hl, bulk, lane);
+      }
+    }
+  } else {
+    // ---- consumer c: units c, c + 2, ... of this block ------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wtid = tid & 127;
+    __nv_bfloat16* ph =
+        reinterpret_cast<__nv_bfloat16*>(smem + geo.cons + c * geo.cw);
+    __nv_bfloat16* pl = ph + 8 * 8 * geo.las;
+    __nv_bfloat16* yh = ph;  // y takes the planes' place after the product
+    __nv_bfloat16* yl = yh + 8 * geo.np * geo.la;
+    // the block's units are j = 0, 1, ...: consumer c takes j = c, c + 2,
+    // ..., and the two take turns at the products in the order of j, so
+    // that one's products run while the other splits, stores y and runs
+    // stage 2 (both at once leave the tensor cores idle in each one's
+    // waits)
+    const int total = (units - blockIdx.x + gridDim.x - 1) / gridDim.x;
+    int jc = 0;
+    for (int u = blockIdx.x + c * gridDim.x; u < units;
+         u += WG_CONSUMERS * gridDim.x, ++jc) {
+      const int j = WG_CONSUMERS * jc + c;
+      const int b = u / nruns, s0 = (u - b * nruns) * gs;
+      int a;
+      wg_window_origin(s0, down, k, &a);
+      for (int p = 0; p < 2; ++p) {
+        fir_wg_bar_wait(full + 2 * c + p, jc & 1);
+        const float* st = ring + p * half;
+        for (int g = wtid; g < half / 8; g += 128) {
+          const float4 v0 = *reinterpret_cast<const float4*>(st + 8 * g);
+          const float4 v1 = *reinterpret_cast<const float4*>(st + 8 * g + 4);
+          const float v[8] = {v0.x, v0.y, v0.z, v0.w,
+                              v1.x, v1.y, v1.z, v1.w};
+          fir_wg_split8(v, ph, pl, p * half + 8 * g, geo.las);
+        }
+        fir_wg_sync(1 + c);  // the stage is read
+        if (wtid == 0) fir_wg_bar_arrive(empty + p);
+      }
+      fir_wg_fence_async();
+      fir_wg_sync(1 + c);
+
+      float acc[64];
+      if (j > 0) fir_wg_turn_wait(1 + WG_CONSUMERS + c);
+      fir_wg_product(ah, al, ph, pl, geo.kt, geo.las, acc);
+      if (j + 1 < total) fir_wg_turn_give(1 + WG_CONSUMERS + (1 - c));
+      fir_wg_sync(1 + c);  // every product has read the planes
+      // y_loc[i] at plane position i + ys: the slab's rows then start at
+      // multiples of 16
+      const int ys = (16 - a % 16) % 16;
+      fir_wg_store_y(acc, yh, yl, ys, geo.np, geo.la, geo.inv, wtid);
+      fir_wg_fence_async();  // stage 2's wgmma reads y through descriptors
+      fir_wg_sync(1 + c);
+
+      const int ng = min(gs, s_total - s0);
+      float* zr = z + (size_t)b * s_total * up + (size_t)s0 * up;
+      wg_resample(yh, yl, sbank, soff, zr, a + ys, ng, up, down, k, geo.np,
+                  geo.la, wtid);
+      fir_wg_sync(1 + c);  // y is read before the next unit's planes
+    }
+  }
+}
+
 }  // namespace
 
 // x: (batch, t) f32, t % down == 0.  hist: (batch, hl) f32, the carried
@@ -396,7 +754,9 @@ fused_high_kernel(const float* __restrict__ x, const float* __restrict__ hist,
 // fir_a / fir_b are the bf16 hi / lo parts of the taps, and bank_a is the
 // dense bank R, zero-padded to (up rounded up to 8, down + k-1 rounded up
 // to 16), bf16 hi and lo in the order of the mma B fragments (see
-// resample_stage_mma); bank_b is unused.
+// resample_stage_mma); bank_b is null, or the taps' tables for wgmma
+// (fir_wgmma.cuh: kt/8 + 7 core matrices hi, then lo), which run "high" on
+// fused_high_wgmma_kernel with gs groups a unit.
 // Returns cudaGetLastError() after the launch.
 extern "C" int fused_fir_resample_launch(const float* x, const float* hist,
                                          const void* fir_a, const void* fir_b,
@@ -406,12 +766,37 @@ extern "C" int fused_fir_resample_launch(const float* x, const float* hist,
                                          int up, int down, int k, int gs,
                                          int high, void* stream) {
   if (batch <= 0 || t <= 0) return (int)cudaSuccess;
+  const int s_total = t / down;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (high && bank_b != nullptr) {
+    const WgGeometry wg = wg_geometry(ntaps, up, down, k, gs);
+    if (wg.smem > SMEM_MAX || gs < 1 || down % 16 != 0 ||
+        gs * down + k - 1 + FIR_WG_PH - 1 > FIR_WG_LY)
+      return (int)cudaErrorInvalidValue;
+    cudaFuncSetAttribute(fused_high_wgmma_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)wg.smem);
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fused_high_wgmma_kernel, WG_THREADS, wg.smem);
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const int nruns = (s_total + gs - 1) / gs;
+    const long long units = (long long)batch * nruns;
+    if (units > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    const int grid = (int)(units < (long long)sms * per_sm
+                               ? units : (long long)sms * per_sm);
+    const int bulk = ((uintptr_t)x % 16 == 0) && ((uintptr_t)hist % 16 == 0);
+    fused_high_wgmma_kernel<<<grid, WG_THREADS, wg.smem, s>>>(
+        x, hist, (const uint4*)bank_b, (const uint4*)bank_a, z, t, hl, up,
+        down, k, gs, s_total, nruns, (int)units, bulk, wg);
+    return (int)cudaGetLastError();
+  }
   const Geometry geo = geometry(ntaps, down, k, gs, high);
   if (geo.smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  const int s_total = t / down;
   const int gstride = down % 4 == 0 ? 1 : (down % 2 == 0 ? 2 : 4);
   const dim3 grid((s_total + gs - 1) / gs, batch);
-  cudaStream_t s = (cudaStream_t)stream;
   if (high) {
     cudaFuncSetAttribute(fused_high_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,

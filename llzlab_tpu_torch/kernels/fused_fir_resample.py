@@ -18,10 +18,16 @@ recompute both the FIR history and the resampler's ``K−1``-sample lookback.
   product ``slab (B, S, down+K−1) @ Rᵀ``, with the bf16 hi/lo split
   emulated for ``"high"``.
 
-On the card "highest" runs on fp32 FMA and "high" on the tensor cores
-(``mma.sync`` bf16x3, ``csrc/fir_mma.cuh``); every CUDA block's window
-starts at a multiple of 8 of the stream index (:func:`_window_origin`), so
-that calls which cut the stream differently give the same bits.
+On the card "highest" runs on fp32 FMA and "high" on the tensor cores,
+bf16x3.  Where the shape allows it (:func:`wgmma_fits`: ``down`` a
+multiple of 16 and the working set in shared memory, as at 1024 taps and
+147/160), "high" is a persistent, warp-specialised kernel with both stages
+on ``wgmma`` (``csrc/fir_wgmma.cuh``) whose units of 8192 outputs start at
+multiples of 64 of the stream index; elsewhere it is ``mma.sync``
+(``csrc/fir_mma.cuh``) from blocks whose windows start at multiples of 8
+(:func:`_window_origin`).  Either way calls which cut the stream
+differently give the same bits.  ``fused_fir_resample_cuda
+.wgmma_launches`` counts the launches of the first.
 
 Shape envelope, program length and state length are the JAX package's
 (``fused_supports``, ``fused_program_in``, ``fused_state_len``), so a port
@@ -61,6 +67,8 @@ __all__ = [
     "mma_bank_tables",
     "kernel_tables",
     "kernel_fits",
+    "wgmma_fits",
+    "wgmma_tap_tables",
 ]
 
 #: FIR outputs per stage-1 pass of a CUDA block ("high": 8 warps × 4
@@ -71,6 +79,10 @@ _STEP = 4096
 _ALIGN = 8
 #: dynamic shared memory one block may use on sm_90 (227 KB)
 _SMEM_MAX = 232448
+#: the wgmma path: phases of its product, which is also its windows'
+#: alignment, and outputs of a unit (csrc/fir_wgmma.cuh)
+_WG_PH = 64
+_WG_LY = 8192
 
 
 def fused_program_in(ntaps: int, up: int, down: int) -> int:
@@ -120,11 +132,12 @@ def _run_groups(down: int, k: int) -> int:
     return (passes * _STEP - (_ALIGN - 1) - (k - 1)) // down
 
 
-def _window_origin(s0: int, down: int, k: int) -> int:
+def _window_origin(s0: int, down: int, k: int, align: int = _ALIGN) -> int:
     """Stream index of the first y sample of the block whose first output
-    group is ``s0``: ``s0·down − (K−1)`` rounded down to a multiple of 8
-    (mirrors ``window_origin`` in the .cu)."""
-    return (s0 * down - (k - 1)) // _ALIGN * _ALIGN
+    group is ``s0``: ``s0·down − (K−1)`` rounded down to a multiple of
+    ``align``, 8 on the ``mma.sync`` path and ``_WG_PH`` on the wgmma path
+    (mirrors ``window_origin`` and ``wg_window_origin`` in the .cu)."""
+    return (s0 * down - (k - 1)) // align * align
 
 
 def _geometry(ntaps: int, down: int, k: int, mode: str):
@@ -160,6 +173,88 @@ def kernel_fits(ntaps: int, down: int, k: int) -> bool:
     an SM; a ``down`` of
     many thousand samples makes the y window too long)."""
     return max(_smem_bytes(ntaps, down, k, m) for m in MODES) <= _SMEM_MAX
+
+
+def _wgmma_groups(down: int, k: int) -> int:
+    """Output groups of a unit of the wgmma path: as many as fit its 8192
+    outputs with ``K − 1`` of left halo and 63 of alignment (50 at the
+    headline); under 1 where one group does not fit."""
+    return (_WG_LY - (_WG_PH - 1) - (k - 1)) // down
+
+
+def _wgmma_kt(ntaps: int) -> int:
+    """Rows of the wgmma path's product: ``ntaps + 63`` rounded up to 16
+    (``fir_wg_kt`` in csrc/fir_wgmma.cuh)."""
+    return mma_rows(ntaps, _WG_PH)
+
+
+def _wgmma_chunks(nt: int, up: int, down: int, k: int):
+    """First and last 16-tau chunk of the dense bank that n-tile ``nt``
+    (phases ``8·nt`` … ``8·nt + 7``) reaches (``wg_ks_lo`` / ``wg_ks_hi``
+    in the .cu)."""
+    p = min(8 * nt + 7, up - 1)
+    return (8 * nt * down // up) // 16, (p * down // up + k - 1) // 16
+
+
+def _wgmma_geometry(ntaps: int, up: int, down: int, k: int):
+    """``(kt, core matrices of a tap table, x window, rows of an x plane,
+    n-tiles, bank chunks kept, y planes, rows of a y plane)`` of the wgmma
+    path (mirrors ``wg_geometry`` in the .cu)."""
+    kt = _wgmma_kt(ntaps)
+    lx = -(-(_WG_LY + kt - _WG_PH) // 64) * 64
+    ntiles = -(-up // 8)
+    nv = sum(hi - lo + 1 for lo, hi in
+             (_wgmma_chunks(nt, up, down, k) for nt in range(ntiles)))
+    npl = down // 8
+    nks = -(-(down + k - 1) // 16)
+    reach = 64 * -(-_wgmma_groups(down, k) // 64) - 1 + (8 + 2 * nks) // npl
+    la = (max(1029 // npl, reach) + 1) | 1
+    return kt, kt // 8 + 7, lx, (lx // 64) | 1, ntiles, nv, npl, la
+
+
+def _wgmma_smem_bytes(ntaps: int, up: int, down: int, k: int) -> int:
+    """Shared memory of a wgmma block: 128 bytes of barriers, the tap
+    tables (hi, lo), the ring of two half windows in f32, the offsets and
+    the chunks of stage 2's bank that the n-tiles reach, then for each of
+    two consumers its x planes (hi, lo) or the y planes (hi, lo: down / 8
+    planes of 16-byte rows) that take their place."""
+    kt, nd, lx, las, ntiles, nv, npl, la = _wgmma_geometry(ntaps, up, down, k)
+    cw = max(2 * 128 * las, 2 * 16 * npl * la)
+    return (128 + 2 * 128 * nd + 4 * lx + -(-4 * ntiles // 16) * 16
+            + 512 * nv + 2 * cw)
+
+
+def wgmma_fits(ntaps: int, up: int, down: int, k: int) -> bool:
+    """Whether "high" runs on the wgmma path: ``down`` a multiple of 16
+    (stage 2 reads the slab's rows, ``down`` apart, as rows of the tensor
+    cores' 8-row tiles), a unit holds a group, and the block's working set
+    fits the 227 KB of shared memory (204 KB at 1024 taps, 147/160, K = 64;
+    not at 2000 taps there)."""
+    return (down % 16 == 0 and _wgmma_groups(down, k) >= 1
+            and _wgmma_smem_bytes(ntaps, up, down, k) <= _SMEM_MAX)
+
+
+@functools.lru_cache(maxsize=16)
+def _wgmma_taps_cached(taps_bytes: bytes, device: str):
+    taps = np.frombuffer(taps_bytes, np.float64).copy()
+    kt = _wgmma_kt(len(taps))
+    d, r, c = np.ogrid[:kt // 8 + 7, :8, :8]
+    idx = kt - 1 - 8 * d - r - c
+    ok = torch.from_numpy((idx >= 0) & (idx < len(taps)))
+    idx = torch.from_numpy(np.clip(idx, 0, len(taps) - 1))
+    zero = torch.zeros((), dtype=torch.bfloat16)
+    return torch.stack([torch.where(ok, part[idx], zero)
+                        for part in bf16_hi_lo(taps)]).contiguous().to(device)
+
+
+def wgmma_tap_tables(fir_taps, device="cpu") -> torch.Tensor:
+    """The taps' Toeplitz as the wgmma path reads it
+    (``csrc/fir_wgmma.cuh``): ``(2, kt/8 + 7, 8, 8)`` bf16, hi then lo,
+    ``D[d, r, c] = taps[kt − 1 − 8d − r − c]`` (zero outside the taps),
+    ``kt = ntaps + 63`` rounded up to 16: core matrix ``(n'/8, k/8)`` of
+    ``A[n', k] = taps[kt − 1 − n' − k]`` is ``D[n'/8 + k/8]``."""
+    return _wgmma_taps_cached(np.asarray(fir_taps, np.float64).tobytes(),
+                              str(device))
 
 
 @functools.lru_cache(maxsize=16)
@@ -302,18 +397,23 @@ def fused_fir_resample_cuda(x: torch.Tensor, hist: torch.Tensor, fir_taps,
             z = torch.empty((b, (t // down) * up), dtype=torch.float32,
                             device=x.device)
             high = mode == "high"
+            wg = high and wgmma_fits(ntaps, up, down, k)
             rc = lib.fused_fir_resample_launch(
                 x.data_ptr(), hist.data_ptr(), tabs[0].data_ptr(),
                 tabs[1].data_ptr() if high else None,
-                tabs[2 if high else 1].data_ptr(), None, z.data_ptr(),
-                b, t, hl, ntaps, up, down, k, _run_groups(down, k), int(high),
-                torch.cuda.current_stream().cuda_stream)
+                tabs[2 if high else 1].data_ptr(),
+                wgmma_tap_tables(fir, x.device).data_ptr() if wg else None,
+                z.data_ptr(), b, t, hl, ntaps, up, down, k,
+                _wgmma_groups(down, k) if wg else _run_groups(down, k),
+                int(high), torch.cuda.current_stream().cuda_stream)
         _build.check(rc, "fused_fir_resample")
         fused_fir_resample_cuda.launches += 1
+        fused_fir_resample_cuda.wgmma_launches += int(wg)
         return z
 
 
 fused_fir_resample_cuda.launches = 0
+fused_fir_resample_cuda.wgmma_launches = 0
 
 
 def fused_fir_resample(x: torch.Tensor, fir_taps, up: int, down: int, rtaps,

@@ -6,6 +6,8 @@ JAX, so on a machine without JAX run it without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -117,6 +119,140 @@ def test_fused_kernel_over_the_envelope(ntaps, up, down, k, mode):
     zb = ff.fused_fir_resample(x[:, p:].contiguous(), *args, zi=zf,
                                mode=mode)
     assert torch.equal(torch.cat([za, zb], -1), z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ntaps,up,down,k", [
+    (1024, 147, 160, 64),  # the headline and the channelizer: 3 phase tiles
+    (129, 3, 16, 8),       # 507 groups a unit: 8 group blocks in stage 2
+    (513, 5, 48, 16),      # odd ntaps, one phase tile
+    (513, 2, 32, 16),      # a shared factor: runs as 1/16 with K = 32
+    (2000, 3, 16, 8),      # the longest filter that fits the wgmma path
+])
+def test_wgmma_path_matches_plain_and_streams_bitwise(ntaps, up, down, k):
+    """B1 at "high" on the wgmma path against its plain version in f64
+    (the 80 dB floor) at the ratio the wrapper runs, ``up / down`` in
+    lowest terms, and, streamed over a program boundary, against itself;
+    each call one launch, counted as a wgmma launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    rtaps = resample_taps(up, down, k)
+    g = math.gcd(up, down)
+    u, d = up // g, down // g
+    assert ff.wgmma_fits(ntaps, u, d, len(rtaps) // u)
+    rng = np.random.default_rng(47)
+    args = (firwin(ntaps, 0.2), up, down, rtaps)
+    p = ff.fused_program_in(ntaps, u, d)
+    x = torch.from_numpy(
+        rng.standard_normal((8, 2 * p)).astype(np.float32)).cuda()
+    zi = torch.from_numpy(rng.standard_normal(
+        (8, ff.fused_state_len(ntaps))).astype(np.float32)).cuda()
+    n = ff.fused_fir_resample_cuda.launches
+    w = ff.fused_fir_resample_cuda.wgmma_launches
+    z = ff.fused_fir_resample(x, *args, zi=zi, mode="high")
+    assert ff.fused_fir_resample_cuda.launches == n + 1
+    assert ff.fused_fir_resample_cuda.wgmma_launches == w + 1
+    ref = ff.fused_fir_resample_plain(x.double(), zi.double(), args[0], u,
+                                      d, rtaps, "highest")
+    assert z.shape == ref.shape and bool(torch.isfinite(z).all())
+    assert _snr_db(ref, z) >= 80.0
+    za, zf = ff.fused_fir_resample(x[:, :p].contiguous(), *args, zi=zi,
+                                   return_zf=True, mode="high")
+    zb = ff.fused_fir_resample(x[:, p:].contiguous(), *args, zi=zf,
+                               mode="high")
+    assert torch.equal(torch.cat([za, zb], -1), z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["high", "highest"])
+@pytest.mark.parametrize("ntaps,up,down,k,wgmma", [
+    (513, 2, 48, 16, 0),  # runs as 1/24 with K = 32: down 24, mma.sync
+    (129, 2, 32, 8, 1),   # runs as 1/16 with K = 16: wgmma at "high"
+])
+def test_fused_kernel_runs_a_shared_factor_in_lowest_terms(ntaps, up, down,
+                                                           k, wgmma, mode):
+    """As in the JAX package, the wrapper divides ``up`` and ``down`` by
+    their gcd and reads the resampler's taps as the reduced bank, ``K·g``
+    taps a phase, so B1 on the card equals its plain version at that ratio
+    (the plain version at ``up / down`` itself is another filter: about
+    -3 dB from the wrapper's output); the path is that of the reduced
+    shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    g = math.gcd(up, down)
+    u, d = up // g, down // g
+    rtaps = resample_taps(up, down, k)
+    assert g > 1 and ff.wgmma_fits(ntaps, up, down, k)
+    assert ff.wgmma_fits(ntaps, u, d, len(rtaps) // u) == bool(wgmma)
+    rng = np.random.default_rng(50)
+    taps = firwin(ntaps, 0.2)
+    x = torch.from_numpy(rng.standard_normal(
+        (8, 2 * ff.fused_program_in(ntaps, u, d))).astype(np.float32)).cuda()
+    zi = torch.from_numpy(rng.standard_normal(
+        (8, ff.fused_state_len(ntaps))).astype(np.float32)).cuda()
+    w = ff.fused_fir_resample_cuda.wgmma_launches
+    z = ff.fused_fir_resample(x, taps, up, down, rtaps, zi=zi, mode=mode)
+    assert ff.fused_fir_resample_cuda.wgmma_launches == w + int(
+        wgmma and mode == "high")
+    ref = ff.fused_fir_resample_plain(x.double(), zi.double(), taps, u, d,
+                                      rtaps, "highest")
+    assert z.shape == ref.shape
+    assert _snr_db(ref, z) >= FLOOR_DB[mode]
+
+
+@pytest.mark.cuda
+def test_wgmma_path_loads_unaligned_inputs_itself():
+    """x and hist 4 bytes past a 16-byte boundary (contiguous views into
+    larger buffers) cannot be bulk-copied: the producer warp loads them
+    itself, and the output is bitwise that of aligned copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    ntaps, up, down, k = 129, 3, 16, 8
+    args = (firwin(ntaps, 0.2), up, down, resample_taps(up, down, k))
+    t = 2 * ff.fused_program_in(ntaps, up, down)
+    hl = ff.fused_state_len(ntaps)
+    gen = torch.Generator("cuda").manual_seed(49)
+    x = torch.randn(8 * t + 1, device="cuda", generator=gen)[1:].view(8, t)
+    hist = torch.randn(8 * hl + 1, device="cuda",
+                       generator=gen)[1:].view(8, hl)
+    assert x.data_ptr() % 16 and hist.data_ptr() % 16
+    w = ff.fused_fir_resample_cuda.wgmma_launches
+    z = ff.fused_fir_resample_cuda(x, hist, *args, "high")
+    ref = ff.fused_fir_resample_cuda(x.clone(), hist.clone(), *args, "high")
+    assert ff.fused_fir_resample_cuda.wgmma_launches == w + 2
+    assert torch.equal(z, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ntaps,mode,wgmma", [
+    (1024, "high", 1),     # the headline: the wgmma path
+    (2000, "high", 0),     # its tap tables outgrow shared memory: mma.sync
+    (1024, "highest", 0),  # fp32 FMA
+])
+def test_wgmma_launches_count_the_path_by_shape(ntaps, mode, wgmma):
+    """``wgmma_launches`` counts one launch a call where the shape takes the
+    wgmma path and none elsewhere; ``launches`` counts every call.  The
+    fallback at 2000 taps holds the 80 dB floor too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    up, down, k = 147, 160, 64
+    assert ff.wgmma_fits(ntaps, up, down, k) == (wgmma == 1 or
+                                                 mode == "highest")
+    rng = np.random.default_rng(48)
+    args = (firwin(ntaps, 0.2), up, down, resample_taps(up, down, k))
+    x = torch.from_numpy(rng.standard_normal(
+        (8, ff.fused_program_in(ntaps, up, down))).astype(np.float32)).cuda()
+    n = ff.fused_fir_resample_cuda.launches
+    w = ff.fused_fir_resample_cuda.wgmma_launches
+    for _ in range(2):
+        z = ff.fused_fir_resample(x, *args, mode=mode)
+    assert ff.fused_fir_resample_cuda.launches == n + 2
+    assert ff.fused_fir_resample_cuda.wgmma_launches == w + 2 * wgmma
+    ref = ff.fused_fir_resample_plain(
+        x.double(), torch.zeros((8, ff.fused_state_len(ntaps)),
+                                dtype=torch.float64, device="cuda"),
+        *args, "highest")
+    assert _snr_db(ref, z) >= max(80.0, FLOOR_DB[mode])
 
 
 @pytest.mark.cuda

@@ -161,3 +161,210 @@ def test_kernel_tables_by_mode():
     assert bank is ff.mma_bank_tables(r, 3, 4)
     t32, b32 = ff.kernel_tables(taps, r, 3, 4, "highest")
     assert t32.dtype == b32.dtype == torch.float32 and b32.shape == (8, 3)
+
+
+# ---- the wgmma path ("high" where it fits: csrc/fir_wgmma.cuh) ------------
+
+WG = CU.with_name("fir_wgmma.cuh")
+#: (ntaps, up, down, K): the headline and channelizer shape first, then the
+#: card tests' shapes and the long filters
+WG_GRID = [(1024, 147, 160, 64), (129, 3, 16, 8), (256, 5, 16, 8),
+           (513, 2, 48, 16), (1024, 147, 32, 64), (2000, 3, 16, 8),
+           (2000, 147, 160, 64), (2049, 147, 160, 64), (129, 3, 4, 8),
+           (1024, 160, 147, 16), (129, 7, 50, 16), (129, 3, 8, 8)]
+
+
+def _wg_formula(ntaps, up, down, k):
+    """``(fits, smem)`` of a wgmma block from the formula that the comment
+    above ``struct WgGeometry`` in the .cu documents."""
+    gs = (8192 - 63 - (k - 1)) // down
+    if down % 16:
+        return False, None
+    kt = -(-(ntaps + 63) // 16) * 16
+    nd = kt // 8 + 7
+    lx = -(-(8192 + kt - 64) // 64) * 64
+    las = (lx // 64) | 1
+    nt = -(-up // 8)
+    nv = 0
+    for t in range(nt):
+        p = min(8 * t + 7, up - 1)
+        nv += (p * down // up + k - 1) // 16 - (8 * t * down // up) // 16 + 1
+    npl = down // 8
+    k2 = -(-(down + k - 1) // 16) * 16
+    la = (max(1029 // npl, 64 * -(-gs // 64) - 1 + (8 + k2 // 8) // npl)
+          + 1) | 1
+    cw = max(2 * 128 * las, 2 * 16 * npl * la)
+    smem = (128 + 2 * 128 * nd + 4 * lx + -(-4 * nt // 16) * 16
+            + 512 * nv + 2 * cw)
+    return down % 16 == 0 and gs >= 1 and smem <= 232448, smem
+
+
+def test_wgmma_source_documents_the_formula_and_constants_agree():
+    text = CU.read_text()
+    doc = " ".join(w for w in text[
+        text.index("// Mirrored by _wgmma_smem_bytes"):
+        text.index("struct WgGeometry")].split() if w != "//")
+    for piece in ("gs = (8192 - 63 - (k-1)) / down groups a unit (at least "
+                  "1; down a multiple of 16)",
+                  "kt = ntaps + 63 rounded up to 16; nd = kt/8 + 7",
+                  "lx = 8192 + kt - 64 rounded up to 64; las = lx/64, "
+                  "made odd",
+                  "np = down / 8; k2 = down + k-1 rounded up to 16",
+                  "la = max(1029 / np, 64 * (gs rounded up to 64, over 64) "
+                  "- 1 + (8 + k2/8) / np) + 1, made odd",
+                  "cw = max(2 * 128 * las, 2 * 16 * np * la)",
+                  "smem = 128 + 2 * 128 * nd + 4 * lx + (4 * nt rounded up "
+                  "to 16) + 512 * nv + 2 * cw"):
+        assert piece in doc, piece
+    wg = WG.read_text()
+    assert f"constexpr int FIR_WG_PH = {ff._WG_PH};" in wg
+    assert "constexpr int FIR_WG_ROWS = 128;" in wg
+    assert ff._WG_LY == ff._WG_PH * 128
+
+
+@pytest.mark.parametrize("ntaps,up,down,k", WG_GRID)
+def test_wgmma_mirror_equals_documented_formula(ntaps, up, down, k):
+    fits, smem = _wg_formula(ntaps, up, down, k)
+    if down % 16 == 0:
+        assert ff._wgmma_smem_bytes(ntaps, up, down, k) == smem
+    assert ff.wgmma_fits(ntaps, up, down, k) == fits
+
+
+@pytest.mark.parametrize("ntaps,up,down,k,fits", [
+    (1024, 147, 160, 64, True),   # the headline and the channelizer
+    (1536, 147, 160, 64, True),
+    (2000, 147, 160, 64, False),  # the tap tables and windows outgrow it
+    (2049, 147, 160, 64, False),
+    (2000, 3, 16, 8, True),       # a small bank leaves room for them
+    (2000, 3, 4, 8, False),       # the envelope's: a down of 4
+    (129, 3, 4, 8, False),        # the small test shape
+    (1024, 160, 147, 16, False),  # upsampling 147 -> 160: an odd down
+    (1024, 147, 20000, 64, False),  # no group fits a unit
+])
+def test_wgmma_path_is_decided_by_the_shape(ntaps, up, down, k, fits):
+    assert ff.wgmma_fits(ntaps, up, down, k) == fits
+    if fits:
+        assert ff._wgmma_smem_bytes(ntaps, up, down, k) <= ff._SMEM_MAX
+        assert ff.kernel_fits(ntaps, down, k)  # the fallback fits as well
+
+
+def test_headline_wgmma_block_fills_one_sm():
+    assert ff._wgmma_groups(160, 64) == 50
+    assert ff._wgmma_smem_bytes(1024, 147, 160, 64) == 209104
+    assert ff._wgmma_smem_bytes(1024, 147, 160, 64) > TWO_PER_SM
+
+
+@pytest.mark.parametrize("ntaps,up,down,k", WG_GRID)
+def test_wgmma_units_hold_their_groups_from_a_multiple_of_64(
+        ntaps, up, down, k):
+    """A unit's y window (8192 outputs) starts at a multiple of 64 of the
+    stream index at most 63 before its first group's first y, and holds
+    its last group's last y; one more group would not fit."""
+    gs = ff._wgmma_groups(down, k)
+    if not ff.wgmma_fits(ntaps, up, down, k):
+        return
+    assert gs * down + k - 1 + 63 <= ff._WG_LY
+    assert (gs + 1) * down + k - 1 + 63 > ff._WG_LY
+    for s0 in (0, gs, 7 * gs, 1000 * gs):
+        o = ff._window_origin(s0, down, k, ff._WG_PH)
+        assert o % 64 == 0
+        assert 0 <= s0 * down - (k - 1) - o < 64
+        assert (s0 + gs) * down - 1 - o < ff._WG_LY
+
+
+@pytest.mark.parametrize("ntaps", [17, 129, 1024])
+def test_wgmma_tap_table_is_the_toeplitz_in_core_matrix_order(ntaps):
+    """Core matrix ``(n'/8, k/8)`` of ``A[n', k]``, the (kt, 64) Toeplitz
+    with its phases in reverse (``A[n', k] = W[k, 63 − n']``), is entry
+    ``n'/8 + k/8`` of the table, row ``n' % 8``, column ``k % 8``, for
+    every (n', k) and both parts; the table has no other entries."""
+    taps = np.random.default_rng(ntaps).standard_normal(ntaps)
+    tab = ff.wgmma_tap_tables(taps)
+    kt = ff._wgmma_kt(ntaps)
+    assert kt % 16 == 0 and kt >= ntaps + 63 > kt - 16
+    assert tab.dtype == torch.bfloat16 and tab.is_contiguous()
+    assert tuple(tab.shape) == (2, kt // 8 + 7, 8, 8)
+    bits = tab.view(torch.int16).numpy()
+    for part, t in zip(bits, bf.tap_tables(taps, "high")):
+        w = np.zeros((kt, 64), np.float32)  # W[k, c] = taps[c - k + kt - 64]
+        kk, cc = np.meshgrid(np.arange(kt), np.arange(64), indexing="ij")
+        j = cc - kk + kt - 64
+        ok = (j >= 0) & (j < ntaps)
+        w[ok] = t.float().numpy()[j[ok]]
+        want = torch.from_numpy(w).to(torch.bfloat16).view(torch.int16)
+        n, k = np.meshgrid(np.arange(64), np.arange(kt), indexing="ij")
+        got = part[n // 8 + k // 8, n % 8, k % 8]
+        np.testing.assert_array_equal(got, want.numpy()[k, 63 - n])
+
+
+@pytest.mark.parametrize("ntaps", [17, 129])
+def test_wgmma_descriptor_walk_is_the_fir(ntaps):
+    """The product as the kernel's descriptors address it: chunk ``ch`` of
+    A at core matrix ``2·ch`` of the table (LBO = SBO = 128 bytes), of B at
+    plane ``2·ch % 8``, row ``2·ch / 8`` of the window's planes (LBO one
+    plane, SBO 8 rows), the accumulator's row ``n'`` and column ``m`` the
+    output ``64·m + 63 − n'``: the FIR of the window, exactly in f64."""
+    rng = np.random.default_rng(ntaps)
+    taps = rng.standard_normal(ntaps)
+    kt, nd, lx, las = ff._wgmma_geometry(ntaps, 3, 16, 8)[:4]
+    d = ff.wgmma_tap_tables(taps)[0].double().numpy().reshape(-1)
+    xw = rng.standard_normal(lx)
+    q = np.arange(lx)
+    planes = np.zeros(8 * las * 8)
+    planes[((q // 8) % 8 * las + q // 64) * 8 + q % 8] = xw
+
+    def core(mem, start, lbo, sbo, rows, cols):  # element offsets
+        r, c = np.meshgrid(rows, cols, indexing="ij")
+        return mem[start + r // 8 * sbo + c // 8 * lbo + r % 8 * 8 + c % 8]
+
+    y = np.zeros((64, 128))
+    for ch in range(kt // 16):
+        a = core(d, 128 * ch, 64, 64, np.arange(64), np.arange(16))
+        b = core(planes, ((2 * ch) % 8 * las + ch // 4) * 8, las * 8, 64,
+                 np.arange(128), np.arange(16))
+        y += a @ b.T
+    h_hi = bf.tap_tables(taps, "high")[0].double().numpy()
+    i = np.arange(8192)
+    ref = np.array([h_hi @ xw[j + kt - 64 - np.arange(ntaps)] for j in i])
+    out = np.zeros(8192)
+    n, m = np.meshgrid(np.arange(64), np.arange(128), indexing="ij")
+    out[64 * m + 63 - n] = y
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("up,down,k,a", [(147, 160, 64, 33), (3, 16, 8, 0),
+                                         (5, 48, 12, 61)])
+def test_wgmma_stage2_descriptor_walk_is_the_slab(up, down, k, a):
+    """Stage 2's B, as its descriptors address the y planes: chunk ``ks``
+    of the 64 groups from ``gb`` at plane ``q % np``, row ``q // np + gb``
+    (``q = ys/8 + 2·ks``, LBO one plane, SBO 8 rows), where y sample ``i``
+    of the window is stored at plane position ``i + shift`` by
+    ``fir_wg_yplane`` (``shift`` making ``a + shift`` a multiple of 16): it
+    is ``slab[g][tau] = y[a + g·down + tau]`` for every group of the unit."""
+    kt, nd, lx, las, ntiles, nv, npl, la = ff._wgmma_geometry(129, up, down,
+                                                              k)
+    gs = ff._wgmma_groups(down, k)
+    shift = (16 - a % 16) % 16
+    ys = a + shift
+    inv = (0xFFFFFFFF // npl) + 1
+    y = np.random.default_rng(down).standard_normal(8192)
+    planes = np.full(16 * npl * la, np.nan)
+    i = np.arange(8192) + shift
+    q = i // 8
+    row = (q * inv) >> 32
+    assert np.array_equal(row, q // npl)  # the kernel's division
+    planes[((q - row * npl) * la + row) * 8 + i % 8] = y
+    k2 = -(-(down + k - 1) // 16) * 16
+    kd = down + k - 1
+    for gb in range(0, gs, 64):
+        g = np.arange(gb, min(gb + 64, gs))
+        for ks in range(k2 // 16):
+            qq = ys // 8 + 2 * ks
+            start = ((qq % npl) * la + qq // npl + gb) * 8
+            r, c = np.meshgrid(g - gb, np.arange(16), indexing="ij")
+            b = planes[start + r // 8 * 64 + c // 8 * la * 8 + r % 8 * 8
+                       + c % 8]
+            tau = 16 * ks + c
+            ok = tau < kd  # taus past the slab meet zeros of the bank
+            want = y[np.minimum(a + g[:, None] * down + tau, 8191)]
+            np.testing.assert_array_equal(b[ok], want[ok])
