@@ -21,7 +21,8 @@ samples, and per section (:func:`apply_section`):
    four elementwise launches over the whole signal);
 2. the carry across blocks, ``s_j = z_j[L−1] + P^L·s_{j−1}`` from ``zi``:
    the one sequential part, a loop over the ``(B, nblk, 2)`` block end
-   states on the host (one copy each way: a few kilobytes);
+   states on the host (one copy each way: a few kilobytes; the span
+   ``llz/ops/sos_carry``);
 3. the output with the carry folded in,
    ``y[j, k] = b0·x + c·z[j, k−1] + (cᵀP^k)·s_{j−1}``.
 
@@ -50,6 +51,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from llzlab_tpu_torch.runtime.profiler import count_state_reads, span
 
 __all__ = [
     "butter_sos",
@@ -905,11 +908,13 @@ def apply_section(kind: str, params, cur: torch.Tensor,
 
 def apply_section_host(kind: str, params, cur: torch.Tensor,
                        s0_init: np.ndarray, block_size: int,
-                       zf_index: Optional[int] = None):
+                       zf_index: Optional[int] = None, op: str = "sosfilt"):
     """:func:`apply_section` with the states on the host, where the carry
     across blocks is computed: ``s0_init`` and the returned ``zf`` are
     ``(B, 2)`` float32 arrays (the sharded carry composition,
-    ``parallel/sharded_ops.py``, composes them there)."""
+    ``parallel/sharded_ops.py``, composes them there).  Step 2 is the span
+    ``llz/ops/sos_carry``; its two reads of scan states from the device
+    count under ``op`` in ``counters()["state_reads"]``."""
     b, t = cur.shape
     L = int(block_size)
     if zf_index is None:
@@ -930,13 +935,16 @@ def apply_section_host(kind: str, params, cur: torch.Tensor,
         z[..., s:, :].add_(step)
     # 2. the carry across blocks, on the host
     j, k = divmod(zf_index, L)
-    ends = z[:, :, L - 1, :].cpu().numpy()
-    s_in = _host_carry(ends, s0_init, tab["carry"])
-    zf = _state_at(z[:, j, k, :].cpu().numpy(), s_in[:, j], tab["carry"][k])
+    with span("ops", "sos_carry"):
+        ends = z[:, :, L - 1, :].cpu().numpy()
+        s_in = _host_carry(ends, s0_init, tab["carry"])
+        zf = _state_at(z[:, j, k, :].cpu().numpy(), s_in[:, j],
+                       tab["carry"][k])
+        count_state_reads(op, 2)
+        s_dev = torch.from_numpy(s_in).to(x.device)
     # 3. the output, with the carry entering each block folded in
     c1, c2 = tab["c"]
     g = tab["g"]
-    s_dev = torch.from_numpy(s_in).to(x.device)
     y = x * tab["b0"]
     zc = z[..., :-1, 0] * c1
     zc.add_(z[..., :-1, 1] * c2)
@@ -1214,24 +1222,27 @@ def sosfilt(
         (BASELINE.json:9 "bit-matched state carry").
       return_zf: also return the final states ``(..., ns, 2)`` float32.
     """
-    kinds, params = sos_plan(sos)
-    shape = tuple(x.shape)
-    t = shape[-1]
-    nb, ns = math.prod(shape[:-1]), len(kinds)
-    xb = x.reshape(nb, t).to(torch.float32)
-    zi_b = _states_in(zi, nb, ns, x.device)
-    if t == 0:
-        y = x.clone()
-        return (y, zi_b.reshape(shape[:-1] + (ns, 2)).clone()) if return_zf \
-            else y
-    # Pad once for the whole cascade, so every section sees whole blocks.
-    cur = F.pad(xb, (0, padded_len(t, int(block_size)) - t))
-    zf_out = []
-    for s, kind in enumerate(kinds):
-        cur, zf = apply_section(kind, params[s], cur, zi_b[:, s, :],
-                                block_size, zf_index=t - 1)
-        zf_out.append(zf)
-    y = cur[:, :t].reshape(shape).to(x.dtype)
-    if not return_zf:
-        return y
-    return y, torch.stack(zf_out, dim=1).reshape(shape[:-1] + (ns, 2))
+    with span("ops", "sosfilt"):
+        kinds, params = sos_plan(sos)
+        shape = tuple(x.shape)
+        t = shape[-1]
+        nb, ns = math.prod(shape[:-1]), len(kinds)
+        xb = x.reshape(nb, t).to(torch.float32)
+        zi_b = _states_in(zi, nb, ns, x.device)
+        if t == 0:
+            y = x.clone()
+            if return_zf:
+                return y, zi_b.reshape(shape[:-1] + (ns, 2)).clone()
+            return y
+        # Pad once for the whole cascade, so every section sees whole blocks.
+        cur = F.pad(xb, (0, padded_len(t, int(block_size)) - t))
+        zf_out = []
+        for s, kind in enumerate(kinds):
+            cur, zf = apply_section(kind, params[s], cur, zi_b[:, s, :],
+                                    block_size, zf_index=t - 1)
+            zf_out.append(zf)
+        y = cur[:, :t].reshape(shape).to(x.dtype)
+        if not return_zf:
+            return y
+        return y, torch.stack(zf_out, dim=1).reshape(shape[:-1]
+                                                     + (ns, 2))

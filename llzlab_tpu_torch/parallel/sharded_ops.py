@@ -301,7 +301,8 @@ def sosfilt_sharded(
         """Section ``s`` over rank ``r``'s signal from the host state
         ``s0``, in place; its host end state."""
         cur[r], zf = _iir.apply_section_host(kinds[s], params[s], cur[r],
-                                             s0, block_size, zf_index=ti)
+                                             s0, block_size, zf_index=ti,
+                                             op="sosfilt_sharded")
         return zf
 
     zf_rows = [[] for _ in rows]
@@ -309,8 +310,8 @@ def sosfilt_sharded(
     for s in range(ns):
         if nt > 1:
             ends = mesh.map(lambda v: _iir.apply_section_host(
-                kinds[s], params[s], v, zero, block_size, zf_index=ti)[1],
-                cur)
+                kinds[s], params[s], v, zero, block_size, zf_index=ti,
+                op="sosfilt_sharded")[1], cur)
             note_traffic("all-gather", 8 * c_loc, len(mesh))
         for ci, row in enumerate(rows):
             st = np.ascontiguousarray(st_host[ci * c_loc:(ci + 1) * c_loc, s])

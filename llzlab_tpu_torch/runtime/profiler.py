@@ -25,8 +25,9 @@ calls.
 * :func:`counters` is one snapshot of the program's counters, kept with
   or without a profiler: request calls, the bytes every exchange between
   ranks notes (``parallel.mesh.note_traffic``) by kind, the kernels'
-  launches (their wrappers' ``.launches`` attributes) and the builds of
-  ``kernels/_build.py``.
+  launches (their wrappers' ``.launches`` attributes), the builds of
+  ``kernels/_build.py`` and the IIR scan's reads of its states from the
+  device (``ops.iir.apply_section_host``) by calling op.
 * :func:`profile_calls` profiles some calls and says what the cards did.
   ``chip_smoke.py`` and the ``scripts/profile_*_torch.py`` scripts read
   their profiles through it.
@@ -64,6 +65,8 @@ _CALLS: Dict[str, int] = {}
 _TRAFFIC: Dict[str, int] = {}
 #: ``[builds, nvcc seconds]`` by kernel source name
 _BUILDS: Dict[str, list] = {}
+#: the IIR scan's device-to-host reads of its states, by calling op
+_STATE_READS: Dict[str, int] = {}
 
 
 def span(layer: str, name: str):
@@ -101,6 +104,12 @@ def count_build(name: str, seconds: float) -> None:
         got[1] += seconds
 
 
+def count_state_reads(op: str, n: int) -> None:
+    """Count ``n`` reads of scan states from the device under ``op``: a
+    plain integer add, always on, as the kernels' ``.launches``."""
+    _STATE_READS[op] = _STATE_READS.get(op, 0) + n
+
+
 def counters() -> dict:
     """A snapshot of the program's counters since the process started::
 
@@ -108,7 +117,8 @@ def counters() -> dict:
          "traffic_bytes": {kind: bytes},
          "launches": {"B1": {"launches": n}, ..., "B3": {"launches": n,
                       "cross_card_launches": n, ...}, ...},
-         "builds": {source: {"builds": n, "nvcc_s": seconds}}}
+         "builds": {source: {"builds": n, "nvcc_s": seconds}},
+         "state_reads": {op: reads}}
 
     ``traffic_bytes`` counts as ``utils.profiling.collective_traffic``
     does (a send's payload times its sends)."""
@@ -129,6 +139,7 @@ def counters() -> dict:
                          for k, fn in wrappers.items()},
             "builds": {k: {"builds": n, "nvcc_s": s}
                        for k, (n, s) in _BUILDS.items()},
+            "state_reads": dict(_STATE_READS),
         }
 
 

@@ -17,8 +17,10 @@ import torch
 from llzlab_tpu_torch.chains.channelizer import Channelizer
 from llzlab_tpu_torch.kernels import _build
 from llzlab_tpu_torch.ops.fir import firwin
+from llzlab_tpu_torch.ops.iir import peaking_eq_sos
 from llzlab_tpu_torch.parallel.mesh import TIME_AXIS, DspMesh, shard_time
-from llzlab_tpu_torch.pipeline.chain import Chain, FIRStage
+from llzlab_tpu_torch.parallel.sharded_ops import sosfilt_sharded
+from llzlab_tpu_torch.pipeline.chain import Chain, FIRStage, SOSStage
 from llzlab_tpu_torch.runtime import profiler
 from llzlab_tpu_torch.utils.profiling import collective_traffic, trace
 
@@ -30,6 +32,18 @@ CHAN = dict(fir_taps=firwin(256, 0.4), fft_n=128, up=3, down=4,
 def _chain():
     chain = Chain([FIRStage(firwin(129, 0.25), method="block2")])
     return chain, chain.init_state((2,), device="cpu"), torch.randn(2, 1024)
+
+
+#: three peaking sections, the scan in blocks of 256
+SOS = peaking_eq_sos([100, 1000, 8000], [3, -4, 5], 48000.0)
+
+
+def _sos_chain():
+    """An IIR chain, a state carried into it, and two blocks of input."""
+    chain = Chain([SOSStage(SOS, block_size=256)])
+    state = tuple(torch.randn(s.shape) for s in chain.init_state(
+        (2,), device="cpu"))
+    return chain, state, torch.randn(2, 512)
 
 
 def _sharded(method="block2", halo="rdma"):
@@ -101,6 +115,48 @@ def test_a_sharded_step_records_its_layers_in_the_request():
     assert _inside(spans, request, "llz/chains/frames")
 
 
+def test_an_iir_block_records_its_scan_and_carry_spans_nested():
+    chain, state, x = _sos_chain()
+    with torch.profiler.profile() as prof:
+        chain.apply(x, state)
+    spans = _spans(prof)
+    assert [n for _, _, n in spans] == [
+        "llz/pipeline/Chain.apply", "llz/pipeline/SOSStage",
+        "llz/ops/sosfilt"] + ["llz/ops/sos_carry"] * len(SOS)
+    assert _inside(spans, "llz/pipeline/SOSStage", "llz/ops/sosfilt")
+    assert _inside(spans, "llz/ops/sosfilt", "llz/ops/sos_carry")
+
+
+def test_the_state_reads_count_two_a_section_a_call():
+    chain, state, x = _sos_chain()
+    before = profiler.counters()["state_reads"].get("sosfilt", 0)
+    chain.apply(x, state)
+    chain.apply(x, state)
+    after = profiler.counters()["state_reads"]
+    assert after["sosfilt"] - before == 2 * 2 * len(SOS)
+
+
+def test_the_sharded_scan_counts_its_reads_under_its_own_key():
+    mesh = DspMesh(["cpu"] * 4, (TIME_AXIS,))
+    parts = shard_time(torch.randn(2, 4 * 512), mesh)
+    before = profiler.counters()["state_reads"]
+    sosfilt_sharded(parts, SOS, mesh, block_size=256)
+    after = profiler.counters()["state_reads"]
+    # a zero-state pass and a pass from the composed carry on every rank
+    assert after["sosfilt_sharded"] - before.get("sosfilt_sharded", 0) \
+        == 2 * 2 * len(mesh) * len(SOS)
+    assert after.get("sosfilt", 0) == before.get("sosfilt", 0)
+
+
+def test_an_iir_block_under_a_profiler_is_bitwise_one_without():
+    chain, state, x = _sos_chain()
+    y, new = chain.apply(x, state)
+    with torch.profiler.profile():
+        y_p, new_p = chain.apply(x, state)
+    assert torch.equal(y, y_p)
+    assert all(torch.equal(a, b) for a, b in zip(new, new_p))
+
+
 def test_a_request_passes_its_sequence_number(monkeypatch):
     got = []
 
@@ -147,6 +203,8 @@ def test_no_profiler_range_is_entered_without_a_profiler(monkeypatch):
     step, parts, state = _sharded()
     step(parts, state)
     step(parts, state)
+    chain, state, x = _sos_chain()
+    chain.apply(x, state)
     assert profiler.span("ops", "fir_filter") is profiler._OFF
 
 
@@ -184,7 +242,8 @@ def test_counters_count_the_calls_and_the_bytes_collective_traffic_sees(
 
 def test_counters_read_the_kernels_launches_and_the_builds():
     got = profiler.counters()
-    assert set(got) == {"calls", "traffic_bytes", "launches", "builds"}
+    assert set(got) == {"calls", "traffic_bytes", "launches", "builds",
+                        "state_reads"}
     assert set(got["launches"]) == {"B1", "B2", "B3", "B4"}
     assert got["launches"]["B3"].keys() == {
         "launches", "cross_card_launches", "cross_process_launches",
