@@ -4,8 +4,8 @@
 Drives the port's main paths through the hand-written CUDA kernels and
 checks them:
 
-1. device: the GPU's name and power limit; all four kernels built with
-   nvcc, in parallel;
+1. device: the GPU's name and power limit; all four kernels and the IIR
+   scan kernel built with nvcc, in parallel;
 2. each kernel against its plain PyTorch version on the card: B1 (fused
    FIR→resample) and B2 (block2 FIR) at a small shape, at the headline
    shape and at the shapes one rank of the channelizer gives them (1024 and
@@ -82,9 +82,16 @@ checks them:
    ``clear_graphs``; for both engines per tool block and one shot the
    CUDA-event time, the host's enqueue time, the device kernels and copies
    per call and the idle share under ``torch.profiler``, beside the
-   bounds.  No hand
-   kernel lies on this path (none does in the JAX package either): the
-   launch counts of all four stay 0;
+   bounds.  The scan engine's every call on the card is one launch of the
+   scan kernel ``sos_scan`` (which replaces no TPU kernel: the JAX
+   package's scan is ``lax`` code): its launches on the stage, the
+   ``sosfilt_auto`` calls and the tool equal their ``sosfilt`` calls,
+   counted before the kernel is timed alone; the four FIR kernels' stay
+   0.  Alone, with CUDA events, at 64 x 4096 (a scan block), 64, 8 and 1
+   x 480 000, and 64 x 480 000 in blocks of 16 384 (the wide variant),
+   beside its bound (8 B a sample at the card's bandwidth) and beside the
+   tensor cascade on the card (``ops.iir._cascade``), bitwise equal to
+   it; the ``kernels`` line carries it as ``sos_scan``;
 9. the remaining ops on the card at the BASELINE configs' widths (10 s at
    48 kHz), inputs made on the card from a seed: config 4's 256 channels
    through ``spectrogram`` (2048, hop 512, Hann), ``welch``, ``csd``,
@@ -199,6 +206,8 @@ PREVIOUS = {
 }
 KERNEL_NAMES = ("block2_fir", "fused_fir_resample", "halo_ring",
                 "halo_fir_fused")
+#: the IIR scan kernel (phase 8), built with the others in phase 1
+SCAN_KERNEL = "sos_scan"
 SMALL = dict(ntaps=129, cutoff=0.2, up=3, down=4, k=8, channels=8)
 #: the channelizer tool's runs in phase 7, the config's 2048-point frames
 #: through the ols FIR: its 1024 channels on one rank (983 040 samples, the
@@ -325,7 +334,7 @@ def multicard_paths(dev, smi, wrappers):
     from llzlab_tpu_torch.parallel.mesh import (CHANNEL_MAJOR, TIME_AXIS,
                                                 DspMesh, gather,
                                                 make_dsp_mesh, shard)
-    from llzlab_tpu_torch.runtime.profiler import profile_calls
+    from llzlab_tpu_torch.runtime.profiler import counters, profile_calls
     from llzlab_tpu_torch.utils.profiling import collective_traffic
     from scripts.pod_scaling_torch import comm_bytes
 
@@ -1571,8 +1580,12 @@ def config_4_and_tools(dev, smi):
 
 def config_3_and_tool(dev, smi):
     """Phase 8: config 3 at its published size through ``SOSStage`` (the
-    scan engine), ``sosfilt_matmul``, ``sosfilt_auto`` and the ``iir``
-    tool, with their times.  Raises on any failure."""
+    scan engine, on the scan kernel), ``sosfilt_matmul``, ``sosfilt_auto``
+    and the ``iir`` tool, with their times, and the scan kernel alone
+    beside its bound and the tensor cascade.  Returns the scan kernel's
+    entry of the ``kernels`` line: its launches on those paths (each
+    ``sosfilt`` call on the card one, raises otherwise) and its times;
+    raises on any failure."""
     import tempfile
 
     import scipy.signal as ss
@@ -1583,9 +1596,10 @@ def config_3_and_tool(dev, smi):
                                   sosfilt_matmul)
     from llzlab_tpu_torch.cli import iir as iir_cli
     from llzlab_tpu_torch.io.wav import read_wav, write_wav
-    from llzlab_tpu_torch.ops import iir_matmul, iir_select
+    from llzlab_tpu_torch.kernels import sos_scan
+    from llzlab_tpu_torch.ops import iir, iir_matmul, iir_select
     from llzlab_tpu_torch.ops.iir import sos_plan
-    from llzlab_tpu_torch.runtime.profiler import profile_calls
+    from llzlab_tpu_torch.runtime.profiler import counters, profile_calls
 
     def check(what, got_db, floor, strict=False):
         log(f"[config3] {what}: {got_db:.1f} dB (floor {floor})")
@@ -1607,6 +1621,10 @@ def config_3_and_tool(dev, smi):
     blocks = [xp[:, i * blk:(i + 1) * blk] for i in range(nblk)]
     stage = SOSStage(sos, block_size=L)
     chain = Chain([stage])
+    # every sosfilt call of the paths below, up to the iir tool, is on the
+    # card: one launch of the scan kernel each
+    launches0 = sos_scan.sos_scan_cuda.launches
+    applies0 = counters()["calls"].get("Chain.apply", 0)
     log(f"[config3] config 3 ({cfg.name}): {c} x {t}, {ns} peaking "
         f"sections ({', '.join(sorted(set(sos_plan(sos)[0])))} form), "
         f"scan blocks of {L}; streamed in {nblk} blocks of {blk} (the iir "
@@ -1692,6 +1710,14 @@ def config_3_and_tool(dev, smi):
     if not same:
         raise RuntimeError("iir tool output != the streamed stage")
     del y, streamed, one
+    scans = sos_scan.sos_scan_cuda.launches - launches0
+    calls = (counters()["calls"].get("Chain.apply", 0) - applies0
+             + (got[0] == "scan") + 1)  # the two sosfilt_auto calls
+    log(f"[config3] {SCAN_KERNEL} launches on the stage, sosfilt_auto and "
+        f"the iir tool: {scans}, for {calls} sosfilt calls on the card")
+    if scans != calls:
+        raise RuntimeError(f"{SCAN_KERNEL}: {scans} launches for {calls} "
+                           f"sosfilt calls")
 
     # ---- the memory a captured graph of the matmul engine holds ---------
     st = stage.init_state((c,), device=dev)
@@ -1753,8 +1779,51 @@ def config_3_and_tool(dev, smi):
                 f"profiler {seen}: {ms:.3f} ms ({c * n / ms / 1e3:.0f} "
                 f"Msamples/s), bound {b:.4f} ms ({by}); a pass per section "
                 f"{ns * b:.3f} ms; on {smi}")
+
+    # ---- the scan kernel alone, beside its bound and the tensor cascade -
+    kinds, params = sos_plan(sos)
+    zi = torch.randn((c, ns, 2), generator=gen, device=dev)
+    wide = 4 * L
+    shapes = (("a scan block", c, L, L, 50), ("one shot", c, t, L, 5),
+              ("8 channels", 8, t, L, 5), ("one channel", 1, t, L, 5),
+              (f"one shot in blocks of {wide}, the wide variant", c, t,
+               wide, 5))
+    times = {}
+    for what, rows, n, blk_n, iters in shapes:
+        v = x[:rows, :n].contiguous()
+        zr = zi[:rows].contiguous()
+        tables = sos_scan.scan_tables(sos, blk_n, dev)
+        y_k, zf_k = sos_scan.sos_scan_cuda(v, tables, zr, return_zf=True)
+        y_t, zf_t = iir._cascade(kinds, params, v, zr, blk_n)
+        same = bool(torch.equal(y_k, y_t)) and bool(torch.equal(zf_k, zf_t))
+        del y_k, zf_k, y_t, zf_t
+        ms = cuda_ms(lambda: sos_scan.sos_scan_cuda(v, tables, zr, True),
+                     iters=iters)
+        tensor_ms = cuda_ms(lambda: iir._cascade(kinds, params, v, zr,
+                                                 blk_n), iters=3, warmup=1)
+        bound = 8.0 * rows * n / HBM_RATE * 1e3  # x read, y written, fp32
+        times[f"{rows}x{n} L={blk_n}"] = (ms, tensor_ms, bound)
+        log(f"[time] config 3 scan kernel {SCAN_KERNEL} {rows}x{n} {what}, "
+            f"blocks of {blk_n}{' (wide)' if tables.wide else ''}: "
+            f"{ms:.4f} ms, one launch ({rows * n / ms / 1e3:.0f} "
+            f"Msamples/s), bound {bound:.5f} ms (bytes: 8 B a sample), "
+            f"{100 * bound / ms:.3f} % of it; the tensor cascade on the "
+            f"card {tensor_ms:.3f} ms ({tensor_ms / ms:.2f}x the kernel's); "
+            f"bitwise equal, output and states: {same}; on {smi}")
+        if not same:
+            raise RuntimeError(f"scan kernel != tensor cascade at "
+                               f"{rows}x{n}, blocks of {blk_n}")
     del x, xp, blocks
     torch.cuda.empty_cache()
+    ms, tensor_ms, bound = times[f"{c}x{L} L={L}"]
+    return {"launches": scans,
+            "launches_by_path": {"config 3 (stage, sosfilt_auto, iir tool)":
+                                 scans},
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": tensor_ms,
+            "bound_ms": bound, "bound_by": "bytes",
+            "ms_by_shape": {k: v[0] for k, v in times.items()},
+            "plain_ms_by_shape": {k: v[1] for k, v in times.items()},
+            "bound_ms_by_shape": {k: v[2] for k, v in times.items()}}
 
 
 def remaining_ops(dev, smi):
@@ -2124,7 +2193,7 @@ def parallel_paths(dev, smi, wrappers):
     from llzlab_tpu_torch.parallel.tap_tp import fir_filter_tap_parallel
     from llzlab_tpu_torch.runtime import distributed as rd
     from llzlab_tpu_torch.runtime.health import heartbeat
-    from llzlab_tpu_torch.runtime.profiler import profile_calls
+    from llzlab_tpu_torch.runtime.profiler import counters, profile_calls
     from llzlab_tpu_torch.utils.profiling import collective_traffic
 
     by_path = {name: {} for name in wrappers}
@@ -2676,9 +2745,10 @@ def main() -> int:
         f"{torch.version.cuda}; nvidia-smi name, power.limit:")
     log(smi)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_NAMES)) as pool:
-        list(pool.map(_build.build, KERNEL_NAMES))  # one nvcc each, together
-    log(f"[build] {', '.join(n + '.cu' for n in KERNEL_NAMES)} for sm_90a "
+    built = KERNEL_NAMES + (SCAN_KERNEL,)
+    with concurrent.futures.ThreadPoolExecutor(len(built)) as pool:
+        list(pool.map(_build.build, built))  # one nvcc each, together
+    log(f"[build] {', '.join(n + '.cu' for n in built)} for sm_90a "
         f"in {time.perf_counter() - t0:.2f} s")
 
     log(f"[build] blocks an SM holds at {NTAPS} taps (occupancy API): "
@@ -3347,11 +3417,12 @@ def main() -> int:
 
     # ---- phase 8: config 3 and the iir tool ------------------------------
     reset_launches()
-    config_3_and_tool(dev, smi)
+    scan_entry = config_3_and_tool(dev, smi)
     got = {name: w.launches for name, w in wrappers.items()}
-    log(f"[config3] kernel launches on this path: {got} (none expected)")
+    log(f"[config3] FIR kernel launches on this path: {got} (none "
+        f"expected)")
     if any(got.values()):
-        raise RuntimeError(f"config 3 launched a hand kernel: {got}")
+        raise RuntimeError(f"config 3 launched a FIR kernel: {got}")
 
     # ---- phase 9: the remaining ops at the configs' widths ---------------
     reset_launches()
@@ -3421,6 +3492,9 @@ def main() -> int:
                 times[(name, "high")][:2]
             entry["bound_ms_high"] = bounds_high[name][0]
         kernels.append(entry)
+    kernels.append({"name": SCAN_KERNEL, "route": "cuda",
+                    "source": f"llzlab_tpu_torch/csrc/{SCAN_KERNEL}.cu",
+                    "replaces": None, "library_ms": None, **scan_entry})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -38,8 +38,13 @@ the card.  The states interchange with the JAX package's and with
 :func:`llzlab_tpu_torch.ops.iir_matmul.sosfilt_matmul`'s.
 
 No Pallas kernel backs this module in the JAX package (its biquad scan is
-``lax.associative_scan`` inside blocks and ``lax.scan`` across them), so
-the port is plain tensor code.
+``lax.associative_scan`` inside blocks and ``lax.scan`` across them).  On
+the CPU the port runs the steps above as tensor code.  On a CUDA tensor
+:func:`sosfilt` launches the hand-written kernel
+:mod:`llzlab_tpu_torch.kernels.sos_scan` instead: every section of every
+block in one launch, the carry kept on the card, bit for bit the tensor
+code.  :func:`apply_section` and :func:`apply_section_host` stay tensor
+code on every device (the sharded composition needs host states).
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from llzlab_tpu_torch.kernels import sos_scan as _sos_scan
 from llzlab_tpu_torch.runtime.profiler import count_state_reads, span
 
 __all__ = [
@@ -1221,28 +1227,51 @@ def sosfilt(
         carrying ``zf`` reproduces the unsplit output and state bits
         (BASELINE.json:9 "bit-matched state carry").
       return_zf: also return the final states ``(..., ns, 2)`` float32.
+
+    On a CUDA tensor one launch of the scan kernel
+    (:mod:`llzlab_tpu_torch.kernels.sos_scan`, any block size) does the
+    work, with no read to the host; on
+    the CPU the tensor code (:func:`apply_section`), bit for bit the same.
     """
     with span("ops", "sosfilt"):
-        kinds, params = sos_plan(sos)
         shape = tuple(x.shape)
         t = shape[-1]
-        nb, ns = math.prod(shape[:-1]), len(kinds)
+        nb = math.prod(shape[:-1])
         xb = x.reshape(nb, t).to(torch.float32)
-        zi_b = _states_in(zi, nb, ns, x.device)
-        if t == 0:
-            y = x.clone()
-            if return_zf:
-                return y, zi_b.reshape(shape[:-1] + (ns, 2)).clone()
-            return y
-        # Pad once for the whole cascade, so every section sees whole blocks.
-        cur = F.pad(xb, (0, padded_len(t, int(block_size)) - t))
-        zf_out = []
-        for s, kind in enumerate(kinds):
-            cur, zf = apply_section(kind, params[s], cur, zi_b[:, s, :],
-                                    block_size, zf_index=t - 1)
-            zf_out.append(zf)
-        y = cur[:, :t].reshape(shape).to(x.dtype)
+        if x.is_cuda and t > 0:
+            tables = _sos_scan.scan_tables(sos, block_size, x.device)
+            ns = tables.ns
+            zi_b = (None if zi is None else
+                    _states_in(zi, nb, ns, x.device).contiguous())
+            y, zf = _sos_scan.sos_scan_cuda(xb.contiguous(), tables, zi_b,
+                                            return_zf)
+        else:
+            kinds, params = sos_plan(sos)
+            ns = len(kinds)
+            zi_b = _states_in(zi, nb, ns, x.device)
+            if t == 0:
+                y, zf = xb.clone(), zi_b.clone()
+            else:
+                y, zf = _cascade(kinds, params, xb, zi_b, int(block_size))
+        y = y.reshape(shape).to(x.dtype)
         if not return_zf:
             return y
-        return y, torch.stack(zf_out, dim=1).reshape(shape[:-1]
-                                                     + (ns, 2))
+        return y, zf.reshape(shape[:-1] + (ns, 2))
+
+
+def _cascade(kinds, params, xb: torch.Tensor, zi_b: torch.Tensor,
+             block_size: int):
+    """The cascade as tensor code, a section at a time over every block
+    (:func:`apply_section`), on ``xb``'s device: ``(nb, T)`` float32 from
+    the states ``zi_b (nb, ns, 2)`` → ``y (nb, T)`` and ``zf (nb, ns,
+    2)``.  :func:`sosfilt`'s path on the CPU, and the scan kernel's
+    reference on the card."""
+    t = xb.shape[1]
+    # Pad once for the whole cascade, so every section sees whole blocks.
+    cur = F.pad(xb, (0, padded_len(t, block_size) - t))
+    zf_out = []
+    for s, kind in enumerate(kinds):
+        cur, zf = apply_section(kind, params[s], cur, zi_b[:, s, :],
+                                block_size, zf_index=t - 1)
+        zf_out.append(zf)
+    return cur[:, :t], torch.stack(zf_out, dim=1)

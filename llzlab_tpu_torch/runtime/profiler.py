@@ -116,7 +116,8 @@ def counters() -> dict:
         {"calls": {entry: calls},
          "traffic_bytes": {kind: bytes},
          "launches": {"B1": {"launches": n}, ..., "B3": {"launches": n,
-                      "cross_card_launches": n, ...}, ...},
+                      "cross_card_launches": n, ...}, ...,
+                      "sos_scan": {"launches": n}},
          "builds": {source: {"builds": n, "nvcc_s": seconds}},
          "state_reads": {op: reads}}
 
@@ -126,10 +127,12 @@ def counters() -> dict:
     from llzlab_tpu_torch.kernels import fused_fir_resample as _b1
     from llzlab_tpu_torch.kernels import halo_fir_fused as _b4
     from llzlab_tpu_torch.kernels import halo_ring as _b3
+    from llzlab_tpu_torch.kernels import sos_scan as _sos
 
     wrappers = {"B1": _b1.fused_fir_resample_cuda, "B2": _b2.block2_fir_cuda,
                 "B3": _b3.left_halo_ring_cuda,
-                "B4": _b4.block2_fir_halo_fused_cuda}
+                "B4": _b4.block2_fir_halo_fused_cuda,
+                "sos_scan": _sos.sos_scan_cuda}
     with _LOCK:
         return {
             "calls": dict(_CALLS),

@@ -785,6 +785,150 @@ def test_iir_scan_engine_on_the_card(design):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("design,rows,t,block", [
+    ("eq", 64, 4096, 4096), ("eq", 1, 480_000, 4096),
+    ("eq", 1024, 4096 + 300, 4096), ("eq", 8, 300, 4096),
+    ("butter7", 64, 4096, 4096), ("butter7", 8, 6 * 1024 + 300, 1024)])
+def test_sos_scan_kernel_is_bitwise_the_tensor_cascade(design, rows, t,
+                                                       block):
+    """The scan kernel (``sosfilt`` on a CUDA tensor, one launch) against
+    the tensor cascade on the card, ``apply_section_host`` a section at a
+    time (``ops.iir._cascade``), against its plain version on the card
+    (``sos_scan_plain``) and against ``sosfilt`` on the CPU: the same
+    bits, outputs and states, from a state that is not zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from llzlab_tpu_torch.kernels import sos_scan
+    from llzlab_tpu_torch.ops import iir
+
+    sos = _eq_and_butter()[design]
+    rng = np.random.default_rng(52)
+    x = torch.from_numpy(rng.standard_normal((rows, t)).astype(np.float32))
+    zi = torch.from_numpy(rng.standard_normal(
+        (rows, len(sos), 2)).astype(np.float32))
+    n = sos_scan.sos_scan_cuda.launches
+    y, zf = iir.sosfilt(sos, x.cuda(), zi=zi.cuda(), block_size=block,
+                        return_zf=True)
+    assert sos_scan.sos_scan_cuda.launches == n + 1
+    kinds, params = iir.sos_plan(sos)
+    y_t, zf_t = iir._cascade(kinds, params, x.cuda(), zi.cuda(), block)
+    assert torch.equal(y, y_t) and torch.equal(zf, zf_t)
+    y_p, zf_p = sos_scan.sos_scan_plain(
+        x.cuda(), sos_scan.scan_tables(sos, block, "cuda"), zi.cuda(), True)
+    assert torch.equal(y, y_p) and torch.equal(zf, zf_p)
+    y_cpu, zf_cpu = iir.sosfilt(sos, x, zi=zi, block_size=block,
+                                return_zf=True)
+    assert torch.equal(y.cpu(), y_cpu) and torch.equal(zf.cpu(), zf_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design,repeat,rows,t,block", [
+    ("eq", 1, 8, 3 * 16384 + 300, 16384), ("butter7", 1, 3, 70_000, 65536),
+    ("eq_and_inverse", 100, 2, 5 * 1024 + 300, 1024)])
+def test_sos_scan_wide_variant_is_bitwise_the_tensor_cascade(
+        design, repeat, rows, t, block):
+    """Blocks above ``MAX_BLOCK`` and a cascade of 1600 sections, which
+    shared memory does not hold, take the kernel's wide variant: one
+    launch, bitwise the tensor cascade on the card and ``sosfilt`` on the
+    CPU, outputs and states; a stream cut at a multiple of the block is
+    bitwise one call.  The long cascade is the EQ and its inverse (the
+    gains negated) in turn, so that its output stays finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from llzlab_tpu_torch.kernels import sos_scan
+    from llzlab_tpu_torch.ops import iir
+
+    designs = _eq_and_butter()
+    inverse = iir.peaking_eq_sos([100, 200, 400, 800, 1600, 3200, 6400,
+                                  12800], [-3, 4, -5, 2, -6, 3, -2, 5],
+                                 48000.0)
+    designs["eq_and_inverse"] = np.concatenate([designs["eq"], inverse])
+    sos = np.tile(designs[design], (repeat, 1))
+    assert sos_scan.scan_tables(sos, block, "cuda").wide
+    rng = np.random.default_rng(54)
+    x = torch.from_numpy(rng.standard_normal((rows, t)).astype(np.float32))
+    zi = torch.from_numpy(rng.standard_normal(
+        (rows, len(sos), 2)).astype(np.float32))
+    n = sos_scan.sos_scan_cuda.launches
+    y, zf = iir.sosfilt(sos, x.cuda(), zi=zi.cuda(), block_size=block,
+                        return_zf=True)
+    assert sos_scan.sos_scan_cuda.launches == n + 1
+    kinds, params = iir.sos_plan(sos)
+    y_t, zf_t = iir._cascade(kinds, params, x.cuda(), zi.cuda(), block)
+    assert torch.equal(y, y_t) and torch.equal(zf, zf_t)
+    y_cpu, zf_cpu = iir.sosfilt(sos, x, zi=zi, block_size=block,
+                                return_zf=True)
+    assert torch.equal(y.cpu(), y_cpu) and torch.equal(zf.cpu(), zf_cpu)
+    y1, z1 = iir.sosfilt(sos, x[:, :block].cuda(), zi=zi.cuda(),
+                         block_size=block, return_zf=True)
+    y2, z2 = iir.sosfilt(sos, x[:, block:].cuda(), zi=z1,
+                         block_size=block, return_zf=True)
+    assert torch.equal(torch.cat([y1, y2], -1), y) and torch.equal(z2, zf)
+    assert bool(torch.isfinite(y).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["eq", "butter7"])
+def test_sos_scan_kernel_splits_at_blocks_are_one_shot(design):
+    """A stream through the kernel cut at multiples of the block, the
+    state carried, is bitwise one call: outputs and states; each call is
+    one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from llzlab_tpu_torch.kernels import sos_scan
+    from llzlab_tpu_torch.ops.iir import sosfilt
+
+    sos, L = _eq_and_butter()[design], 4096
+    x = torch.randn((64, 10 * L + 300), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(53))
+    one, zf = sosfilt(sos, x, block_size=L, return_zf=True)
+    for cuts in ((L,), (L, 3 * L, 9 * L), (10 * L,)):
+        parts, zi = [], None
+        n = sos_scan.sos_scan_cuda.launches
+        for a, b in zip((0,) + cuts, cuts + (x.shape[1],)):
+            y, zi = sosfilt(sos, x[:, a:b], zi=zi, block_size=L,
+                            return_zf=True)
+            parts.append(y)
+        assert sos_scan.sos_scan_cuda.launches == n + len(cuts) + 1
+        assert torch.equal(torch.cat(parts, -1), one)
+        assert torch.equal(zi, zf)
+
+
+@pytest.mark.cuda
+def test_sosfilt_on_the_card_reads_no_state_to_the_host(monkeypatch):
+    """On the card ``sosfilt`` opens the kernel's span and neither the host
+    carry's (``llz/ops/sos_carry``) nor a read of states
+    (``counters()["state_reads"]``).  The spans are taken as the program
+    opens them, with no profiler running: a profile taken before
+    ``test_spans_on_the_card_are_not_device_work`` leaves that test's
+    profile short of kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    import contextlib
+
+    from llzlab_tpu_torch.ops.iir import sosfilt
+    from llzlab_tpu_torch.runtime import profiler
+
+    sos = _eq_and_butter()["eq"]
+    x = torch.randn((64, 4096), device="cuda")
+    zi = torch.zeros((64, len(sos), 2), device="cuda")
+    sosfilt(sos, x, zi=zi, return_zf=True)  # built and tables made
+    reads = dict(profiler.counters()["state_reads"])
+    names = []
+
+    def record(name, *args):
+        names.append(name)
+        return contextlib.nullcontext()
+
+    monkeypatch.setattr(profiler, "_profiler_enabled", lambda: True)
+    monkeypatch.setattr(profiler, "_RecordFunctionFast", record)
+    sosfilt(sos, x, zi=zi, return_zf=True)
+    torch.cuda.synchronize()
+    assert names == ["llz/ops/sosfilt", "llz/kernels/sos_scan"]
+    assert profiler.counters()["state_reads"] == reads
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("design", ["eq", "butter7"])
 def test_iir_matmul_engine_on_the_card(design):
     """``sosfilt_matmul`` on a CUDA tensor (fp32 cuBLAS, TF32 off) against
