@@ -189,11 +189,11 @@ SHARDED_FLOOR_DB = 140.0
 #: HBM3
 FP32_PEAK, BF16_PEAK, HBM_RATE = 67e12, 989e12, 3.35e12
 #: what the previous versions of the kernels read in this script on an H100
-#: 80GB HBM3 at 700 W (PERF.md), printed beside the new readings: B1 at
-#: "highest" and B3 before their second design, B1 at "high" before wgmma,
-#: B2 and B4 before "high" moved to the tensor cores
+#: 80GB HBM3 at 700 W (PERF.md), printed beside the new readings: B1 before
+#: wgmma (fp32 FMA at "highest", mma.sync at "high"), B3 before its second
+#: design, B2 and B4 before "high" moved to the tensor cores
 PREVIOUS = {
-    "fused_fir_resample ms": {"highest": 1.301, "high": 0.529},
+    "fused_fir_resample ms": {"highest": 1.149, "high": 0.529},
     "fused_fir_resample SNR dB": {"highest": 134.1, "high": 104.2},
     "fused chain SNR dB": {"highest": 134.0, "high": 104.7},
     "halo_ring ms": {"highest": 0.231}, "halo_ring host ms": 0.289,
@@ -3308,6 +3308,13 @@ def main() -> int:
             f", fp32 at {FP32_PEAK / 1e12:.0f} TFLOP/s) at highest, "
             f"{bounds_high[name][0]:.3f} ms ({bounds_high[name][1]}, three "
             f"bf16 passes at {BF16_PEAK / 1e12:.0f} TFLOP/s) at high")
+    # B1's wgmma path at "highest": stage 1 in six bf16 passes on the
+    # tensor cores while stage 2's fp32 FMA runs on the CUDA cores
+    six = max(fir_bound_ms(6 * 2.0 * NTAPS * samples, by_b1, BF16_PEAK),
+              fir_bound_ms(2.0 * K * n_out, by_b1))
+    log(f"[time] fused_fir_resample bound on its wgmma path at highest: "
+        f"{six[0]:.3f} ms ({six[1]}, stage 1 in six bf16 passes, stage 2 "
+        f"on fp32 FMA)")
     del x_all, blocks, x, xpad
 
     # B3 at the fused chain's halo (1024 x 2048), B4 at 256 x 327 680

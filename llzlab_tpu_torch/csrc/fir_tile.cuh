@@ -1,8 +1,11 @@
 // Direct-form FIR in fp32 ("highest") over a shared-memory window, four
-// consecutive outputs per thread; the inner loop of kernels B1
-// (fused_fir_resample.cu, stage 1), B2 (block2_fir.cu) and B4
-// (halo_fir_fused.cu) at "highest", and the staging of B2's and B4's taps.
-// ("high", the three bf16 passes, runs on the tensor cores: fir_mma.cuh.)
+// consecutive outputs per thread; the inner loop of kernels B2
+// (block2_fir.cu) and B4 (halo_fir_fused.cu) at "highest", and of B1's
+// stage 1 (fused_fir_resample.cu, fused_highest_kernel) at the shapes its
+// wgmma path does not take (a down that is no multiple of 16, long
+// filters); and the staging of B2's and B4's taps.  ("high", the three
+// bf16 passes, runs on the tensor cores: fir_mma.cuh; B1's wgmma path at
+// both precisions: fir_wgmma.cuh.)
 //
 // What bounds it: the CUDA cores' fp32 FMA rate, one FMA a tap and output.
 //

@@ -1,9 +1,10 @@
-// Direct-form FIR in "high" precision (bf16x3) on Hopper's warpgroup MMA
-// (wgmma): stage 1 of kernel B1's wgmma path (fused_fir_resample.cu, where
-// down is a multiple of 16 and the working set fits in shared memory), and
-// the pieces its stage 2 shares (the y planes, wgmma with A in registers,
-// mbarriers and bulk copies).  Kernels B2 and B4, and B1 on other shapes,
-// run the mma.sync tile of fir_mma.cuh.
+// Direct-form FIR on Hopper's warpgroup MMA (wgmma), in "high" precision
+// (three bf16 passes) and in "highest" (six): stage 1 of kernel B1's wgmma
+// paths (fused_fir_resample.cu, where down is a multiple of 16 and the
+// working set fits in shared memory), and the pieces the "high" path's
+// stage 2 shares (the y planes, wgmma with A in registers, mbarriers and
+// bulk copies).  Kernels B2 and B4, and B1 on other shapes, run the
+// mma.sync tile of fir_mma.cuh ("high") or fir_tile.cuh ("highest").
 //
 // The product.  A warpgroup computes a unit of FIR_WG_LY = 64 x 128 outputs
 // as one m64n128 product over kt rows,
@@ -26,7 +27,8 @@
 //     the phases run in reverse: a table of kt/8 + 7 core matrices,
 //     D[d][r][c] = h[kt - 1 - 8d - r - c], read with LBO = SBO = 128 bytes,
 //     holds all of A (hi and lo: 36.6 KB at 1024 taps, where the (kt, 64)
-//     tile would take 278 KB).  The host prepares it
+//     tile would take 278 KB; hi, mid and lo at "highest": 54.9 KB).  The
+//     host prepares it
 //     (kernels/fused_fir_resample.py, wgmma_tap_tables) and a block keeps
 //     it for its whole life.
 //   * B's rows are 64 samples apart, so the window is kept in 8 "planes":
@@ -43,6 +45,26 @@
 // An output's sum depends on its tap index and on its index mod 64 (its
 // phase n = 63 - n'): two windows that start at a multiple of 64 of the
 // ABSOLUTE stream index give the same bits for the same output.
+//
+// "highest" keeps fp32: x and h are split into three bf16 parts, hi, mid
+// and lo, each the previous remainder with its low 16 bits cleared
+// (fir_wg_split3), so that hi + mid + lo is the fp32 value exactly
+// (rounding hi to nearest would overflow near the largest float).  Each
+// product of two parts is exact in fp32.  Every 16-deep chunk takes six
+// of them, and a partial sum of FIR_WG_PART6 = 4 chunks (64 taps) takes
+// them pass by pass, the smallest first, each pass over every chunk:
+// x_lo*w_hi, x_hi*w_lo, x_mid*w_mid, x_mid*w_hi, x_hi*w_mid, then
+// x_hi*w_hi, into a fresh accumulator that is then added to the total in
+// fp32, as at "high".  The terms left out (mid*lo, lo*mid, lo*lo) are
+// below 2^-22 of the product.  The small passes sum while the accumulator
+// is small, so its roundings at the product's scale are those of the
+// x_hi*w_hi passes.  An output's bits depend on its tap index and its
+// index mod 64, as at "high".  The product is twice "high"'s: six
+// m64n128k16 products a chunk, 384 clocks of an SM's tensor cores, 2.5x
+// the fp32 FMA rate.  A partial sum of four chunks (24 products) leaves
+// the tensor cores idle in half the waits of one of two (kernel B1 at
+// 1024 x 327 680 on an H100: two chunks 8.4 ms and 133.8 dB against the
+// float64 plain version, four 8.0 ms and 133.6 dB).
 //
 // What bounds it: the tensor cores.  One chunk is three m64n128k16
 // products (393 216 multiply-adds, 192 clocks of an SM's tensor cores)
@@ -61,6 +83,7 @@ constexpr int FIR_WG_PH = 64;                       // phases (wgmma M)
 constexpr int FIR_WG_ROWS = 128;                    // rows of 64 (wgmma N)
 constexpr int FIR_WG_LY = FIR_WG_PH * FIR_WG_ROWS;  // outputs of a unit
 constexpr int FIR_WG_PART = 2;                      // chunks a partial sum
+constexpr int FIR_WG_PART6 = 4;                     //   at "highest"
 constexpr int FIR_WG_CORE = 64;                     // bf16 of a core matrix
 
 // Rows of A and B: every tap of every phase, rounded up to whole chunks.
@@ -68,7 +91,7 @@ __host__ __device__ __forceinline__ int fir_wg_kt(int ntaps) {
   return (ntaps + FIR_WG_PH - 1 + 15) / 16 * 16;
 }
 
-// Core matrices of the tap table (hi or lo).
+// Core matrices of one part's tap table (hi, mid or lo).
 __host__ __device__ __forceinline__ int fir_wg_cores(int kt) {
   return kt / 8 + 7;
 }
@@ -326,6 +349,112 @@ __device__ __forceinline__ void fir_wg_product(
     fir_wg_hold(part);
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] += part[i];
+  }
+}
+
+// ---- "highest": six passes -------------------------------------------------
+
+// v = hi + mid + lo exactly: hi is v with its low 16 bits cleared, mid the
+// same of the remainder, lo what is left (at most 8 significant bits, so
+// its low 16 bits are clear as well); each part's bits as an fp32 word,
+// whose top half is the part in bf16.
+__device__ __forceinline__ void fir_wg_split3(float v, uint32_t& hi,
+                                              uint32_t& mid, uint32_t& lo) {
+  hi = __float_as_uint(v) & 0xFFFF0000u;
+  const float r = v - __uint_as_float(hi);
+  mid = __float_as_uint(r) & 0xFFFF0000u;
+  lo = __float_as_uint(r - __uint_as_float(mid));
+}
+
+// Eight window samples v (window index q, a multiple of 8) into the hi, mid
+// and lo planes, at (b * las + a) * 8 + c for q = 64a + 8b + c, one part's
+// planes 64 * las elements after the previous part's.
+__device__ __forceinline__ void fir_wg_split8x3(const float v[8],
+                                                __nv_bfloat16* p, int q,
+                                                int las) {
+  uint32_t w[3][8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) fir_wg_split3(v[e], w[0][e], w[1][e], w[2][e]);
+  const int off = (((q >> 3) & 7) * las + (q >> 6)) * 8;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)  // the top halves of two words make a pair
+    *reinterpret_cast<uint4*>(p + i * 64 * las + off) = make_uint4(
+        __byte_perm(w[i][0], w[i][1], 0x7632),
+        __byte_perm(w[i][2], w[i][3], 0x7632),
+        __byte_perm(w[i][4], w[i][5], 0x7632),
+        __byte_perm(w[i][6], w[i][7], 0x7632));
+}
+
+// d = chunks [c0, c0 + FIR_WG_PART6) in six passes into a fresh
+// accumulator, issued (not waited for): pass by pass, the smallest first,
+// each pass over every chunk of the part.  a / b: the hi tap table and the
+// hi x planes, the mid and lo ones as / bs bytes after each other.
+__device__ __forceinline__ void fir_wg_part6(float d[64], uint32_t a,
+                                             uint32_t as, uint32_t b,
+                                             uint32_t bs, int las, int c0,
+                                             int nch) {
+  // (x part, w part): lo*hi, hi*lo, mid*mid, mid*hi, hi*mid, hi*hi
+  constexpr int XP[6] = {2, 0, 1, 1, 0, 0}, WP[6] = {0, 2, 1, 0, 1, 0};
+  fir_wg_fence();
+#pragma unroll
+  for (int s = 0; s < 6; ++s) {
+#pragma unroll
+    for (int cc = 0; cc < FIR_WG_PART6; ++cc) {
+      const int ch = c0 + cc;
+      if (ch < nch) {
+        const uint32_t aoff = (uint32_t)ch * 2 * 128 + WP[s] * as;
+        const uint32_t boff =
+            ((uint32_t)((2 * ch) & 7) * las + (uint32_t)(ch >> 2)) * 16 +
+            XP[s] * bs;
+        fir_wg_mma(d, fir_wg_desc(a + aoff, 128, 128),
+                   fir_wg_desc(b + boff, las * 16, 128), s + cc > 0);
+      }
+    }
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// acc = Y of the unit whose three parts' planes start at px, from the tap
+// tables at tab (nd core matrices a part), as fir_wg_product does at
+// "high": each partial sum waited for and added before the next is issued.
+__device__ __forceinline__ void fir_wg_product6(const __nv_bfloat16* tab,
+                                                int nd,
+                                                const __nv_bfloat16* px,
+                                                int kt, int las,
+                                                float acc[64]) {
+  const uint32_t a = fir_wg_smem(tab), b = fir_wg_smem(px);
+  const uint32_t as = 2u * FIR_WG_CORE * nd, bs = 128u * las;
+  const int nch = kt / 16;
+  float part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+  for (int c0 = 0; c0 < nch; c0 += FIR_WG_PART6) {
+    fir_wg_part6(part, a, as, b, bs, las, c0, nch);
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fir_wg_hold(part);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+  }
+}
+
+// Where y_loc[i] is kept in f32: one float of padding after every 32, so
+// that samples a multiple of 32 apart (the groups of a stage-2 tile, the
+// columns m of a warp's store) fall in distinct banks (without it, B1 at
+// 1024 x 327 680 took 8.7 ms against 8.0).
+__host__ __device__ __forceinline__ int fir_wg_ypos(int i) {
+  return i + (i >> 5);
+}
+
+// The unit's 8192 outputs in fp32, y_loc[i] at yw[fir_wg_ypos(i)], i = 64m
+// + 63 - n' (the accumulator's layout: fir_wg_product).
+__device__ __forceinline__ void fir_wg_store_y32(const float acc[64],
+                                                 float* yw, int wtid) {
+  const int w = wtid >> 5, l = wtid & 31;
+#pragma unroll
+  for (int j = 0; j < 64; ++j) {
+    const int np_ = 16 * w + (l >> 2) + 8 * ((j >> 1) & 1);
+    const int m = 8 * (j >> 2) + 2 * (l & 3) + (j & 1);
+    yw[fir_wg_ypos(FIR_WG_PH * m + FIR_WG_PH - 1 - np_)] = acc[j];
   }
 }
 

@@ -18,10 +18,10 @@
 // What bounds it: stage 1 costs ntaps multiply-adds per input sample and
 // stage 2 about K*up/down, so at the headline shape (1024 taps, 147/160,
 // K = 64) the FIR is ~95% of the arithmetic, and the whole step is
-// compute-bound (about 4 bytes of device memory per 2 kFLOP).  At
-// "highest" that is the CUDA cores' fp32 FMA rate; at "high" the three
-// bf16 passes belong to the tensor cores, where the bound is shared-memory
-// loads of the operand fragments (fir_mma.cuh).
+// compute-bound (about 4 bytes of device memory per 2 kFLOP).  On the
+// block below that is the CUDA cores' fp32 FMA rate at "highest"; at
+// "high" the three bf16 passes belong to the tensor cores, where the bound
+// is shared-memory loads of the operand fragments (fir_mma.cuh).
 //
 // Design (the TPU's choices - 20480-sample programs, lane-aligned group
 // counts, a zeroed scratch tail - answer to VMEM and do not carry over):
@@ -57,10 +57,15 @@
 //     (GS*down + K-1 samples and 7 of alignment) just fits whole passes of
 //     STEP outputs.
 // Where the shape allows it (down a multiple of 16, the working set in
-// shared memory: wg_geometry), "high" does not run the block above but a
-// persistent, warp-specialised kernel with both stages on wgmma
-// (fused_high_wgmma_kernel, fir_wgmma.cuh), 2.2x as fast at the headline;
-// the mma.sync block stays for the other shapes.
+// shared memory: wg_geometry), neither mode runs the block above but a
+// persistent, warp-specialised kernel with stage 1 on wgmma
+// (fir_wgmma.cuh): "high" with both stages on wgmma
+// (fused_high_wgmma_kernel, 2.2x as fast as the mma.sync block at the
+// headline), "highest" with stage 1 in six exact bf16 passes and stage 2
+// on fp32 FMA in register tiles (fused_highest_wgmma_kernel, 2.8x as fast
+// as the block above at the channelizer's 1024 x 327 680).  The blocks above
+// stay for the other shapes: a down that is no multiple of 16, long
+// filters (over 1089 taps at "highest", 1665 at "high", at 147/160).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -425,6 +430,8 @@ constexpr int WG_CONSUMERS = 2;
 constexpr int WG_THREADS = (WG_CONSUMERS + 1) * 128;
 constexpr int WG_GB = 64;  // stage 2: groups a product (wgmma N)
 constexpr int WG_KB = 3;   //          chunks a wait
+constexpr int WG_PIECES = 4;  // "highest": pieces of a unit's x window
+constexpr int WG_GT = 4;      //            stage 2: groups of a tile
 
 // Chunks (16 taus) of the dense bank that n-tile nt (phases 8 nt .. 8 nt +
 // 7) reaches: row p of R is zero outside tau = (p*down)/up + [0, k).
@@ -442,6 +449,7 @@ __host__ __device__ __forceinline__ int wg_ks_hi(int nt, int up, int down,
 //         multiple of 16)
 //   kt  = ntaps + 63 rounded up to 16; nd = kt/8 + 7
 //   lx  = 8192 + kt - 64 rounded up to 64; las = lx/64, made odd
+//   high:
 //   nt  = up rounded up to 8, over 8; nv = the sum over n-tiles of the
 //         chunks each reaches (wg_ks_hi - wg_ks_lo + 1)
 //   np  = down / 8; k2 = down + k-1 rounded up to 16
@@ -452,14 +460,23 @@ __host__ __device__ __forceinline__ int wg_ks_hi(int nt, int up, int down,
 //          + 512 * nv + 2 * cw
 //   (barriers, tap tables, the ring of two half windows, the bank's
 //   offsets and chunks, then each consumer's x planes or y planes)
+//   highest:
+//   ks  = the largest over n-tiles of (q of its last phase - q of its
+//         first) + k, q_p = p*down/up (the n-tile's band of taus)
+//   cw  = max(3 * 128 * las, 4 * 8448)   (x planes | y in f32, padded)
+//   smem = 128 + 3 * 128 * nd + 2 * lx + 4 * nt * (8 * ks + 4) + 2 * cw
+//   (barriers, tap tables, the ring of two quarter windows, the banded
+//   bank in f32, then each consumer's x planes or y)
 struct WgGeometry {
   int kt, nd, lx, las, nks, ntiles, np, la;
   uint32_t inv;                          // ceil(2^32 / np)
   int taps, ring, offs, bank, cons, cw;  // byte offsets, a consumer's bytes
   size_t smem;
+  int ks;                                // "highest": taus of a band
 };
 
-WgGeometry wg_geometry(int ntaps, int up, int down, int k, int gs) {
+WgGeometry wg_geometry(int ntaps, int up, int down, int k, int gs,
+                       int highest) {
   WgGeometry g;
   g.kt = fir_wg_kt(ntaps);
   g.nd = fir_wg_cores(g.kt);
@@ -476,13 +493,27 @@ WgGeometry wg_geometry(int ntaps, int up, int down, int k, int gs) {
   int nv = 0;
   for (int nt = 0; nt < g.ntiles; ++nt)
     nv += wg_ks_hi(nt, up, down, k) - wg_ks_lo(nt, up, down) + 1;
-  const int xp = 2 * 128 * g.las, yp = 2 * 16 * g.np * g.la;
-  g.cw = xp > yp ? xp : yp;
   g.taps = 128;
-  g.ring = g.taps + 2 * 128 * g.nd;
-  g.offs = g.ring + 4 * g.lx;
-  g.bank = g.offs + (4 * g.ntiles + 15) / 16 * 16;
-  g.cons = g.bank + 512 * nv;
+  g.ks = 0;
+  for (int nt = 0; nt < g.ntiles; ++nt) {
+    const int last = 8 * nt + 7 < up - 1 ? 8 * nt + 7 : up - 1;
+    const int span = last * down / up - 8 * nt * down / up + k;
+    g.ks = span > g.ks ? span : g.ks;
+  }
+  if (highest) {
+    const int xp = 3 * 128 * g.las, yp = 4 * fir_wg_ypos(FIR_WG_LY);
+    g.cw = xp > yp ? xp : yp;
+    g.ring = g.taps + 3 * 128 * g.nd;
+    g.offs = g.bank = g.ring + 4 * (g.lx / WG_PIECES) * 2;
+    g.cons = g.bank + 4 * g.ntiles * (8 * g.ks + 4);
+  } else {
+    const int xp = 2 * 128 * g.las, yp = 2 * 16 * g.np * g.la;
+    g.cw = xp > yp ? xp : yp;
+    g.ring = g.taps + 2 * 128 * g.nd;
+    g.offs = g.ring + 4 * g.lx;
+    g.bank = g.offs + (4 * g.ntiles + 15) / 16 * 16;
+    g.cons = g.bank + 512 * nv;
+  }
   g.smem = (size_t)g.cons + (size_t)WG_CONSUMERS * g.cw;
   return g;
 }
@@ -745,18 +776,221 @@ fused_high_wgmma_kernel(const float* __restrict__ x,
   }
 }
 
+// ---- "highest" on wgmma ---------------------------------------------------
+
+// The dense bank R restricted to each n-tile's band, in f32: for n-tile b
+// (phases 8b .. 8b + 7) and t < ks, wb[b * (8 ks + 4) + 8 t + i] =
+// R[8b + i][q_{8b} + t] = bank[j][8b + i], j = q_{8b+i} + k-1 - q_{8b} - t,
+// zero where j is outside [0, k) or the phase past up (q_p = p*down/up);
+// n-tiles 8 ks + 4 floats apart, so that the 16-byte loads of eight
+// neighbouring n-tiles fall in distinct banks.
+__device__ __forceinline__ void wg_band_bank(float* wb,
+                                             const float* __restrict__ bank,
+                                             int up, int down, int k,
+                                             int ntiles, int ks, int tid,
+                                             int nthr) {
+  const int bs = 8 * ks + 4;
+  for (int idx = tid; idx < ntiles * bs; idx += nthr) {
+    const int b = idx / bs, r = idx - b * bs, p = 8 * b + r % 8;
+    const int j = p * down / up + k - 1 - 8 * b * down / up - r / 8;
+    wb[idx] = r < 8 * ks && p < up && j >= 0 && j < k ? bank[j * up + p]
+                                                       : 0.f;
+  }
+}
+
+// Stage 2 of a unit by one consumer warpgroup at "highest": z[g][p] =
+// sum_tau y_loc[a + g*down + tau] * R[p][tau] for its ng groups, from y in
+// f32 (yw) and the banded bank (wg_band_bank).  A thread takes tiles of
+// one n-tile (8 phases) by WG_GT groups and walks the n-tile's band: for
+// each tau, 8 weights (two 16-byte loads) and WG_GT samples of y for
+// 8 * WG_GT multiply-adds, where resample_stage makes 20 from 9 loads.  A
+// phase's sum is one running sum in order of tau over the band; its terms
+// outside the phase's own K taps are y * 0, which leave the sum as it is,
+// so the sum is that of its K taps in order of tau, a function of p alone.
+// Groups of the last tile past ng read group ng - 1 and are not stored.
+__device__ __forceinline__ void wg_resample_fp32(
+    const float* yw, const float* wb, float* __restrict__ zr, int a, int ng,
+    int up, int down, int k, int ks, int wtid) {
+  const int ntiles = (up + 7) / 8, bs = 8 * ks + 4;
+  const int ngt = (ng + WG_GT - 1) / WG_GT;
+  for (int it = wtid; it < ntiles * ngt; it += 128) {
+    const int gt = it / ntiles, b = it - gt * ntiles;
+    const int last = 8 * b + 7 < up - 1 ? 8 * b + 7 : up - 1;
+    const int q0 = 8 * b * down / up;
+    const int span = last * down / up - q0 + k;
+    int y[WG_GT];  // y_loc index of each group's tau 0
+#pragma unroll
+    for (int i = 0; i < WG_GT; ++i)
+      y[i] = a + min(WG_GT * gt + i, ng - 1) * down + q0;
+    const float* w = wb + b * bs;
+    float acc[WG_GT][8];
+#pragma unroll
+    for (int i = 0; i < WG_GT; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
+    for (int t = 0; t < span; ++t) {
+      const float4 w0 = *reinterpret_cast<const float4*>(w + 8 * t);
+      const float4 w1 = *reinterpret_cast<const float4*>(w + 8 * t + 4);
+      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int i = 0; i < WG_GT; ++i) {
+        const float yv = yw[fir_wg_ypos(y[i] + t)];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[i][e] = fmaf(yv, wv[e], acc[i][e]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < WG_GT; ++i) {
+      const int g = WG_GT * gt + i;
+      if (g < ng)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (8 * b + e < up) zr[(size_t)g * up + 8 * b + e] = acc[i][e];
+    }
+  }
+}
+
+// The same block, units, producer and turns as fused_high_wgmma_kernel, at
+// fp32: the tap tables and a consumer's x planes have three bf16 parts
+// (hi, mid, lo), stage 1 is six exact passes (fir_wg_product6), and y
+// stays fp32 in the consumer's planes (padded: fir_wg_ypos) for stage 2 on
+// fp32 FMA (wg_resample_fp32).  Three parts of y would not fit in shared
+// memory beside three of x, and stage 2 is 6 % of the products: on the
+// CUDA cores it runs while the other consumer's products hold the tensor
+// cores.  A consumer's turn is its product and its own stage 2 in
+// sequence, so stage 2 has to be short beside the product: its bank stays
+// in shared memory for the block's life, banded (wg_band_bank), because
+// what such a block leaves of L1 does not hold it and, read from L2, every
+// multiply-add waited for it (B1 took 13.9 ms at 1024 x 327 680 so, 8.9 ms
+// with the banded bank in shared memory and register tiles).  To make
+// room, the producer's ring holds two quarter windows, not two halves: a
+// unit's window comes in four pieces, stage (piece % 2).
+__global__ void __launch_bounds__(WG_THREADS, 1)
+fused_highest_wgmma_kernel(const float* __restrict__ x,
+                           const float* __restrict__ hist,
+                           const uint4* __restrict__ taps_tab,
+                           const float* __restrict__ bank,
+                           float* __restrict__ z, int t, int hl, int up,
+                           int down, int k, int gs, int s_total, int nruns,
+                           int units, int bulk, WgGeometry geo) {
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [consumer][stage]
+  uint64_t* empty = full + 2 * WG_CONSUMERS;            // [stage]
+  __nv_bfloat16* tab = reinterpret_cast<__nv_bfloat16*>(smem + geo.taps);
+  float* ring = reinterpret_cast<float*>(smem + geo.ring);
+  float* wb = reinterpret_cast<float*>(smem + geo.bank);
+  const int piece = geo.lx / WG_PIECES;
+  const int tid = threadIdx.x;
+
+  {
+    const int nw = 3 * geo.nd * FIR_WG_CORE / 8;  // uint4 words
+    uint4* dst = reinterpret_cast<uint4*>(tab);
+    for (int i = tid; i < nw; i += WG_THREADS) dst[i] = taps_tab[i];
+    wg_band_bank(wb, bank, up, down, k, geo.ntiles, geo.ks, tid, WG_THREADS);
+  }
+  if (tid == 0) {
+    for (int i = 0; i < 2 * WG_CONSUMERS; ++i) fir_wg_bar_init(full + i, 32);
+    for (int i = 0; i < 2; ++i) fir_wg_bar_init(empty + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  fir_wg_fence_async();
+  __syncthreads();
+
+  const int c = tid >> 7;  // consumer warpgroup, or WG_CONSUMERS: producer
+  if (c == WG_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int lane = tid & 31;
+    int j = 0;
+    for (int u = blockIdx.x; u < units && tid < 128 * WG_CONSUMERS + 32;
+         u += gridDim.x, ++j) {
+      const int b = u / nruns, s0 = (u - b * nruns) * gs;
+      int a;
+      const int m0 = wg_window_origin(s0, down, k, &a) - (geo.kt - FIR_WG_PH);
+      for (int q = 0; q < WG_PIECES; ++q) {
+        // use n of stage q % 2 waits for the release of use n - 1
+        const int n = j * (WG_PIECES / 2) + q / 2;
+        fir_wg_bar_wait(empty + q % 2, (n & 1) ^ 1);
+        wg_fill(ring + (q % 2) * piece, full + 2 * (j % WG_CONSUMERS) + q % 2,
+                x + (size_t)b * t, hist + (size_t)b * hl, m0 + q * piece,
+                piece, t, hl, bulk, lane);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wtid = tid & 127;
+    __nv_bfloat16* px =
+        reinterpret_cast<__nv_bfloat16*>(smem + geo.cons + c * geo.cw);
+    float* yw = reinterpret_cast<float*>(px);  // after the product
+    const int total = (units - blockIdx.x + gridDim.x - 1) / gridDim.x;
+    int jc = 0;
+    for (int u = blockIdx.x + c * gridDim.x; u < units;
+         u += WG_CONSUMERS * gridDim.x, ++jc) {
+      const int j = WG_CONSUMERS * jc + c;
+      const int b = u / nruns, s0 = (u - b * nruns) * gs;
+      int a;
+      wg_window_origin(s0, down, k, &a);
+      for (int q = 0; q < WG_PIECES; ++q) {
+        // this consumer's use 2 jc + q / 2 of its full barrier of stage q % 2
+        fir_wg_bar_wait(full + 2 * c + q % 2, (q / 2) & 1);
+        const float* st = ring + (q % 2) * piece;
+        for (int g = wtid; g < piece / 8; g += 128) {
+          const float4 v0 = *reinterpret_cast<const float4*>(st + 8 * g);
+          const float4 v1 = *reinterpret_cast<const float4*>(st + 8 * g + 4);
+          const float v[8] = {v0.x, v0.y, v0.z, v0.w,
+                              v1.x, v1.y, v1.z, v1.w};
+          fir_wg_split8x3(v, px, q * piece + 8 * g, geo.las);
+        }
+        fir_wg_sync(1 + c);  // the stage is read
+        if (wtid == 0) fir_wg_bar_arrive(empty + q % 2);
+      }
+      fir_wg_fence_async();
+      fir_wg_sync(1 + c);
+
+      float acc[64];
+      if (j > 0) fir_wg_turn_wait(1 + WG_CONSUMERS + c);
+      fir_wg_product6(tab, geo.nd, px, geo.kt, geo.las, acc);
+      if (j + 1 < total) fir_wg_turn_give(1 + WG_CONSUMERS + (1 - c));
+      fir_wg_sync(1 + c);  // every product has read the planes
+      fir_wg_store_y32(acc, yw, wtid);
+      fir_wg_sync(1 + c);
+
+      const int ng = min(gs, s_total - s0);
+      float* zr = z + (size_t)b * s_total * up + (size_t)s0 * up;
+      wg_resample_fp32(yw, wb, zr, a, ng, up, down, k, geo.ks, wtid);
+      fir_wg_sync(1 + c);  // y is read before the next unit's planes
+    }
+  }
+}
+
+// A persistent grid of wgmma blocks for `units` units: as many blocks as
+// the card holds at once, at most one a unit; 0 when none fits.
+template <typename Kernel>
+int wg_grid(Kernel kernel, size_t smem, long long units) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WG_THREADS,
+                                                smem);
+  return (int)(units < (long long)sms * per_sm ? units
+                                                : (long long)sms * per_sm);
+}
+
 }  // namespace
 
 // x: (batch, t) f32, t % down == 0.  hist: (batch, hl) f32, the carried
 // stream history (hl = 2*block).  z: (batch, t/down*up) f32.
 // high == 0: fir_a (ntaps,) and bank_a (k, up) are f32, bank[j][p] =
-// R[p, (p*down)/up + k-1-j]; fir_b and bank_b are unused.  high == 1:
+// R[p, (p*down)/up + k-1-j]; fir_b is unused.  high == 1:
 // fir_a / fir_b are the bf16 hi / lo parts of the taps, and bank_a is the
 // dense bank R, zero-padded to (up rounded up to 8, down + k-1 rounded up
 // to 16), bf16 hi and lo in the order of the mma B fragments (see
-// resample_stage_mma); bank_b is null, or the taps' tables for wgmma
-// (fir_wgmma.cuh: kt/8 + 7 core matrices hi, then lo), which run "high" on
-// fused_high_wgmma_kernel with gs groups a unit.
+// resample_stage_mma).  bank_b is null, or the taps' tables for wgmma
+// (fir_wgmma.cuh: kt/8 + 7 core matrices a part, hi then lo at "high", hi,
+// mid then lo at "highest"), which run fused_high_wgmma_kernel or
+// fused_highest_wgmma_kernel with gs groups a unit.
 // Returns cudaGetLastError() after the launch.
 extern "C" int fused_fir_resample_launch(const float* x, const float* hist,
                                          const void* fir_a, const void* fir_b,
@@ -768,29 +1002,27 @@ extern "C" int fused_fir_resample_launch(const float* x, const float* hist,
   if (batch <= 0 || t <= 0) return (int)cudaSuccess;
   const int s_total = t / down;
   cudaStream_t s = (cudaStream_t)stream;
-  if (high && bank_b != nullptr) {
-    const WgGeometry wg = wg_geometry(ntaps, up, down, k, gs);
+  if (bank_b != nullptr) {
+    const WgGeometry wg = wg_geometry(ntaps, up, down, k, gs, !high);
     if (wg.smem > SMEM_MAX || gs < 1 || down % 16 != 0 ||
         gs * down + k - 1 + FIR_WG_PH - 1 > FIR_WG_LY)
       return (int)cudaErrorInvalidValue;
-    cudaFuncSetAttribute(fused_high_wgmma_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)wg.smem);
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_high_wgmma_kernel, WG_THREADS, wg.smem);
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     const int nruns = (s_total + gs - 1) / gs;
     const long long units = (long long)batch * nruns;
     if (units > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    const int grid = (int)(units < (long long)sms * per_sm
-                               ? units : (long long)sms * per_sm);
+    const int grid = high ? wg_grid(fused_high_wgmma_kernel, wg.smem, units)
+                          : wg_grid(fused_highest_wgmma_kernel, wg.smem,
+                                    units);
+    if (grid < 1) return (int)cudaErrorInvalidConfiguration;
     const int bulk = ((uintptr_t)x % 16 == 0) && ((uintptr_t)hist % 16 == 0);
-    fused_high_wgmma_kernel<<<grid, WG_THREADS, wg.smem, s>>>(
-        x, hist, (const uint4*)bank_b, (const uint4*)bank_a, z, t, hl, up,
-        down, k, gs, s_total, nruns, (int)units, bulk, wg);
+    if (high)
+      fused_high_wgmma_kernel<<<grid, WG_THREADS, wg.smem, s>>>(
+          x, hist, (const uint4*)bank_b, (const uint4*)bank_a, z, t, hl, up,
+          down, k, gs, s_total, nruns, (int)units, bulk, wg);
+    else
+      fused_highest_wgmma_kernel<<<grid, WG_THREADS, wg.smem, s>>>(
+          x, hist, (const uint4*)bank_b, (const float*)bank_a, z, t, hl, up,
+          down, k, gs, s_total, nruns, (int)units, bulk, wg);
     return (int)cudaGetLastError();
   }
   const Geometry geo = geometry(ntaps, down, k, gs, high);

@@ -52,9 +52,9 @@ from llzlab_tpu_torch.kernels import _build
 from llzlab_tpu_torch.runtime.profiler import span
 
 __all__ = ["supports", "cuda_supports", "row_chunks", "band_k", "bf16_hi_lo",
-           "tap_tables", "plain_tables", "mma_rows", "toeplitz_tile",
-           "mma_plan", "SMEM_MAX", "block2_fir", "block2_fir_cuda",
-           "block2_fir_plain"]
+           "bf16_hi_mid_lo", "tap_tables", "plain_tables", "mma_rows",
+           "toeplitz_tile", "mma_plan", "SMEM_MAX", "block2_fir",
+           "block2_fir_cuda", "block2_fir_plain"]
 
 MODES = ("high", "highest")
 
@@ -237,6 +237,27 @@ def _bf16_split(s: torch.Tensor):
     hi = s.to(torch.float32).to(torch.bfloat16).to(s.dtype)
     lo = (s - hi).to(torch.float32).to(torch.bfloat16).to(s.dtype)
     return hi, lo
+
+
+def bf16_hi_mid_lo(s: torch.Tensor):
+    """Three bf16 parts of ``s`` in float32, each returned in s's dtype
+    (exact values), as the six-pass "highest" tensor-core FIR splits its
+    operands (``fir_wg_split3`` in csrc/fir_wgmma.cuh): ``hi`` is the float32
+    value with its low 16 bits cleared, ``mid`` the same of the remainder,
+    ``lo`` what is left.  ``hi + mid + lo`` is the float32 value exactly
+    from 2^-103 (below, ``lo`` can fall under float32's normal range and
+    lose bits) up to the largest finite float, where a ``hi`` rounded to
+    nearest would be infinite."""
+    v = s.to(torch.float32)
+
+    def top(u):  # u with its low 16 bits cleared: a bf16 value
+        return (u.view(torch.int32) & -65536).view(torch.float32)
+
+    hi = top(v)
+    r = v - hi
+    mid = top(r)
+    lo = top(r - mid)
+    return hi.to(s.dtype), mid.to(s.dtype), lo.to(s.dtype)
 
 
 def block2_fir_plain(xpad: torch.Tensor, taps, block: int,

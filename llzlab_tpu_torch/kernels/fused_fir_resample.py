@@ -18,16 +18,20 @@ recompute both the FIR history and the resampler's ``K−1``-sample lookback.
   product ``slab (B, S, down+K−1) @ Rᵀ``, with the bf16 hi/lo split
   emulated for ``"high"``.
 
-On the card "highest" runs on fp32 FMA and "high" on the tensor cores,
-bf16x3.  Where the shape allows it (:func:`wgmma_fits`: ``down`` a
-multiple of 16 and the working set in shared memory, as at 1024 taps and
-147/160), "high" is a persistent, warp-specialised kernel with both stages
-on ``wgmma`` (``csrc/fir_wgmma.cuh``) whose units of 8192 outputs start at
-multiples of 64 of the stream index; elsewhere it is ``mma.sync``
-(``csrc/fir_mma.cuh``) from blocks whose windows start at multiples of 8
-(:func:`_window_origin`).  Either way calls which cut the stream
-differently give the same bits.  ``fused_fir_resample_cuda
-.wgmma_launches`` counts the launches of the first.
+Where the shape allows it (:func:`wgmma_fits`: ``down`` a multiple of 16
+and the working set in shared memory, as at 1024 taps and 147/160), both
+precisions run a persistent, warp-specialised kernel whose stage 1 is on
+the tensor cores' ``wgmma`` (``csrc/fir_wgmma.cuh``) and whose units of
+8192 outputs start at multiples of 64 of the stream index: "high" in three
+bf16 passes with stage 2 on ``wgmma`` too, "highest" in six exact bf16
+passes over three-way splits of the fp32 operands (:func:`bf16_hi_mid_lo
+<llzlab_tpu_torch.kernels.block2_fir.bf16_hi_mid_lo>`) with stage 2 on
+fp32 FMA.  Elsewhere "high" is ``mma.sync`` (``csrc/fir_mma.cuh``) and
+"highest" fp32 FMA (``csrc/fir_tile.cuh``), from blocks whose windows start
+at multiples of 8 (:func:`_window_origin`).  Either way calls which cut the
+stream differently give the same bits.  ``fused_fir_resample_cuda
+.wgmma_launches`` counts the launches of the wgmma path at either
+precision, ``.wgmma_highest_launches`` those at "highest".
 
 Shape envelope, program length and state length are the JAX package's
 (``fused_supports``, ``fused_program_in``, ``fused_state_len``), so a port
@@ -48,6 +52,7 @@ import torch
 from llzlab_tpu_torch.kernels import _build
 from llzlab_tpu_torch.kernels.block2_fir import (MODES, _bf16_split,
                                                  _mode_tables, bf16_hi_lo,
+                                                 bf16_hi_mid_lo,
                                                  block2_fir_plain, mma_rows,
                                                  tap_tables)
 from llzlab_tpu_torch.ops.fir import block2_block
@@ -196,6 +201,14 @@ def _wgmma_chunks(nt: int, up: int, down: int, k: int):
     return (8 * nt * down // up) // 16, (p * down // up + k - 1) // 16
 
 
+def _wgmma_band(up: int, down: int, k: int) -> int:
+    """Taus of the widest n-tile's band at "highest" (``ks`` in the .cu):
+    ``q`` of its last phase less ``q`` of its first, plus K, ``q_p =
+    p·down // up`` (72 at 147/160, K = 64)."""
+    return max(min(8 * t + 7, up - 1) * down // up - 8 * t * down // up + k
+               for t in range(-(-up // 8)))
+
+
 def _wgmma_geometry(ntaps: int, up: int, down: int, k: int):
     """``(kt, core matrices of a tap table, x window, rows of an x plane,
     n-tiles, bank chunks kept, y planes, rows of a y plane)`` of the wgmma
@@ -212,30 +225,42 @@ def _wgmma_geometry(ntaps: int, up: int, down: int, k: int):
     return kt, kt // 8 + 7, lx, (lx // 64) | 1, ntiles, nv, npl, la
 
 
-def _wgmma_smem_bytes(ntaps: int, up: int, down: int, k: int) -> int:
+def _wgmma_smem_bytes(ntaps: int, up: int, down: int, k: int,
+                      mode: str = "high") -> int:
     """Shared memory of a wgmma block: 128 bytes of barriers, the tap
-    tables (hi, lo), the ring of two half windows in f32, the offsets and
-    the chunks of stage 2's bank that the n-tiles reach, then for each of
-    two consumers its x planes (hi, lo) or the y planes (hi, lo: down / 8
-    planes of 16-byte rows) that take their place."""
+    tables, the ring of two half windows in f32, then for each of two
+    consumers its x planes.  "high": tables and planes hi and lo, the
+    offsets and the chunks of stage 2's bank that the n-tiles reach before
+    the consumers, and the y planes (hi, lo: down / 8 planes of 16-byte
+    rows) in the place of the x planes.  "highest": tables and planes hi,
+    mid and lo, a ring of two quarter windows, stage 2's bank in f32 as
+    each n-tile's band (:func:`_wgmma_band` taus of 8 phases, and 4 floats
+    of padding), and y in f32 (8192 outputs) in the place of the
+    planes."""
     kt, nd, lx, las, ntiles, nv, npl, la = _wgmma_geometry(ntaps, up, down, k)
+    if mode == "highest":
+        return (128 + 3 * 128 * nd + 2 * lx
+                + 4 * ntiles * (8 * _wgmma_band(up, down, k) + 4)
+                + 2 * max(3 * 128 * las, 4 * (_WG_LY + _WG_LY // 32)))
     cw = max(2 * 128 * las, 2 * 16 * npl * la)
     return (128 + 2 * 128 * nd + 4 * lx + -(-4 * ntiles // 16) * 16
             + 512 * nv + 2 * cw)
 
 
-def wgmma_fits(ntaps: int, up: int, down: int, k: int) -> bool:
-    """Whether "high" runs on the wgmma path: ``down`` a multiple of 16
-    (stage 2 reads the slab's rows, ``down`` apart, as rows of the tensor
-    cores' 8-row tiles), a unit holds a group, and the block's working set
-    fits the 227 KB of shared memory (204 KB at 1024 taps, 147/160, K = 64;
-    not at 2000 taps there)."""
+def wgmma_fits(ntaps: int, up: int, down: int, k: int,
+               mode: str = "high") -> bool:
+    """Whether ``mode`` runs on the wgmma path: ``down`` a multiple of 16
+    (the "high" stage 2 reads the slab's rows, ``down`` apart, as rows of
+    the tensor cores' 8-row tiles; both modes share the units), a unit
+    holds a group, and the block's working set fits the 227 KB of shared
+    memory (at 1024 taps, 147/160, K = 64: 204 KB at "high", 223.5 KB at
+    "highest"; not at 2000 taps there, nor above 1089 at "highest")."""
     return (down % 16 == 0 and _wgmma_groups(down, k) >= 1
-            and _wgmma_smem_bytes(ntaps, up, down, k) <= _SMEM_MAX)
+            and _wgmma_smem_bytes(ntaps, up, down, k, mode) <= _SMEM_MAX)
 
 
 @functools.lru_cache(maxsize=16)
-def _wgmma_taps_cached(taps_bytes: bytes, device: str):
+def _wgmma_taps_cached(taps_bytes: bytes, device: str, mode: str):
     taps = np.frombuffer(taps_bytes, np.float64).copy()
     kt = _wgmma_kt(len(taps))
     d, r, c = np.ogrid[:kt // 8 + 7, :8, :8]
@@ -243,18 +268,26 @@ def _wgmma_taps_cached(taps_bytes: bytes, device: str):
     ok = torch.from_numpy((idx >= 0) & (idx < len(taps)))
     idx = torch.from_numpy(np.clip(idx, 0, len(taps) - 1))
     zero = torch.zeros((), dtype=torch.bfloat16)
-    return torch.stack([torch.where(ok, part[idx], zero)
-                        for part in bf16_hi_lo(taps)]).contiguous().to(device)
+    parts = (bf16_hi_mid_lo(torch.from_numpy(taps).to(torch.float32))
+             if mode == "highest" else bf16_hi_lo(taps))
+    return torch.stack([torch.where(ok, part.to(torch.bfloat16)[idx], zero)
+                        for part in parts]).contiguous().to(device)
 
 
-def wgmma_tap_tables(fir_taps, device="cpu") -> torch.Tensor:
+def wgmma_tap_tables(fir_taps, device="cpu", mode: str = "high"):
     """The taps' Toeplitz as the wgmma path reads it
-    (``csrc/fir_wgmma.cuh``): ``(2, kt/8 + 7, 8, 8)`` bf16, hi then lo,
+    (``csrc/fir_wgmma.cuh``): ``(parts, kt/8 + 7, 8, 8)`` bf16, the bf16 hi
+    then lo parts of the taps at "high" (:func:`bf16_hi_lo
+    <llzlab_tpu_torch.kernels.block2_fir.bf16_hi_lo>`), hi, mid then lo of
+    their float32 values at "highest" (:func:`bf16_hi_mid_lo
+    <llzlab_tpu_torch.kernels.block2_fir.bf16_hi_mid_lo>`);
     ``D[d, r, c] = taps[kt − 1 − 8d − r − c]`` (zero outside the taps),
     ``kt = ntaps + 63`` rounded up to 16: core matrix ``(n'/8, k/8)`` of
     ``A[n', k] = taps[kt − 1 − n' − k]`` is ``D[n'/8 + k/8]``."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     return _wgmma_taps_cached(np.asarray(fir_taps, np.float64).tobytes(),
-                              str(device))
+                              str(device), mode)
 
 
 @functools.lru_cache(maxsize=16)
@@ -397,23 +430,26 @@ def fused_fir_resample_cuda(x: torch.Tensor, hist: torch.Tensor, fir_taps,
             z = torch.empty((b, (t // down) * up), dtype=torch.float32,
                             device=x.device)
             high = mode == "high"
-            wg = high and wgmma_fits(ntaps, up, down, k)
+            wg = wgmma_fits(ntaps, up, down, k, mode)
             rc = lib.fused_fir_resample_launch(
                 x.data_ptr(), hist.data_ptr(), tabs[0].data_ptr(),
                 tabs[1].data_ptr() if high else None,
                 tabs[2 if high else 1].data_ptr(),
-                wgmma_tap_tables(fir, x.device).data_ptr() if wg else None,
+                wgmma_tap_tables(fir, x.device, mode).data_ptr() if wg
+                else None,
                 z.data_ptr(), b, t, hl, ntaps, up, down, k,
                 _wgmma_groups(down, k) if wg else _run_groups(down, k),
                 int(high), torch.cuda.current_stream().cuda_stream)
         _build.check(rc, "fused_fir_resample")
         fused_fir_resample_cuda.launches += 1
         fused_fir_resample_cuda.wgmma_launches += int(wg)
+        fused_fir_resample_cuda.wgmma_highest_launches += int(wg and not high)
         return z
 
 
 fused_fir_resample_cuda.launches = 0
 fused_fir_resample_cuda.wgmma_launches = 0
+fused_fir_resample_cuda.wgmma_highest_launches = 0
 
 
 def fused_fir_resample(x: torch.Tensor, fir_taps, up: int, down: int, rtaps,

@@ -121,25 +121,34 @@ def test_fused_kernel_over_the_envelope(ntaps, up, down, k, mode):
     assert torch.equal(torch.cat([za, zb], -1), z)
 
 
+#: shapes of the wgmma path: the headline and the channelizer (3 phase
+#: tiles), 507 groups a unit (8 group blocks in "high"'s stage 2), odd ntaps
+#: with one phase tile, a shared factor (runs as 1/16 with K = 32), and the
+#: longest filter that fits the path at each precision
+WGMMA_CASES = [(1024, 147, 160, 64), (129, 3, 16, 8), (513, 5, 48, 16),
+               (513, 2, 32, 16)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("ntaps,up,down,k", [
-    (1024, 147, 160, 64),  # the headline and the channelizer: 3 phase tiles
-    (129, 3, 16, 8),       # 507 groups a unit: 8 group blocks in stage 2
-    (513, 5, 48, 16),      # odd ntaps, one phase tile
-    (513, 2, 32, 16),      # a shared factor: runs as 1/16 with K = 32
-    (2000, 3, 16, 8),      # the longest filter that fits the wgmma path
-])
-def test_wgmma_path_matches_plain_and_streams_bitwise(ntaps, up, down, k):
-    """B1 at "high" on the wgmma path against its plain version in f64
-    (the 80 dB floor) at the ratio the wrapper runs, ``up / down`` in
-    lowest terms, and, streamed over a program boundary, against itself;
-    each call one launch, counted as a wgmma launch."""
+@pytest.mark.parametrize("ntaps,up,down,k,mode",
+                         [c + ("high",) for c in WGMMA_CASES]
+                         + [(2000, 3, 16, 8, "high")]
+                         + [c + ("highest",) for c in WGMMA_CASES]
+                         + [(1777, 3, 16, 8, "highest")])
+def test_wgmma_path_matches_plain_and_streams_bitwise(ntaps, up, down, k,
+                                                      mode):
+    """B1 on the wgmma path against its plain version in f64 (the 80 dB
+    floor at "high", the kernel floor ``FLOOR_DB["highest"]`` at
+    "highest", six bf16 passes) at the ratio the wrapper runs, ``up / down``
+    in lowest terms, and, streamed over a program boundary, against itself;
+    each call one launch, counted as a wgmma launch (and at "highest" as a
+    ``wgmma_highest`` one)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     rtaps = resample_taps(up, down, k)
     g = math.gcd(up, down)
     u, d = up // g, down // g
-    assert ff.wgmma_fits(ntaps, u, d, len(rtaps) // u)
+    assert ff.wgmma_fits(ntaps, u, d, len(rtaps) // u, mode)
     rng = np.random.default_rng(47)
     args = (firwin(ntaps, 0.2), up, down, rtaps)
     p = ff.fused_program_in(ntaps, u, d)
@@ -149,17 +158,20 @@ def test_wgmma_path_matches_plain_and_streams_bitwise(ntaps, up, down, k):
         (8, ff.fused_state_len(ntaps))).astype(np.float32)).cuda()
     n = ff.fused_fir_resample_cuda.launches
     w = ff.fused_fir_resample_cuda.wgmma_launches
-    z = ff.fused_fir_resample(x, *args, zi=zi, mode="high")
+    wh = ff.fused_fir_resample_cuda.wgmma_highest_launches
+    z = ff.fused_fir_resample(x, *args, zi=zi, mode=mode)
     assert ff.fused_fir_resample_cuda.launches == n + 1
     assert ff.fused_fir_resample_cuda.wgmma_launches == w + 1
+    assert ff.fused_fir_resample_cuda.wgmma_highest_launches == wh + int(
+        mode == "highest")
     ref = ff.fused_fir_resample_plain(x.double(), zi.double(), args[0], u,
                                       d, rtaps, "highest")
     assert z.shape == ref.shape and bool(torch.isfinite(z).all())
-    assert _snr_db(ref, z) >= 80.0
+    assert _snr_db(ref, z) >= max(80.0, FLOOR_DB[mode])
     za, zf = ff.fused_fir_resample(x[:, :p].contiguous(), *args, zi=zi,
-                                   return_zf=True, mode="high")
+                                   return_zf=True, mode=mode)
     zb = ff.fused_fir_resample(x[:, p:].contiguous(), *args, zi=zf,
-                               mode="high")
+                               mode=mode)
     assert torch.equal(torch.cat([za, zb], -1), z)
 
 
@@ -167,7 +179,7 @@ def test_wgmma_path_matches_plain_and_streams_bitwise(ntaps, up, down, k):
 @pytest.mark.parametrize("mode", ["high", "highest"])
 @pytest.mark.parametrize("ntaps,up,down,k,wgmma", [
     (513, 2, 48, 16, 0),  # runs as 1/24 with K = 32: down 24, mma.sync
-    (129, 2, 32, 8, 1),   # runs as 1/16 with K = 16: wgmma at "high"
+    (129, 2, 32, 8, 1),   # runs as 1/16 with K = 16: wgmma
 ])
 def test_fused_kernel_runs_a_shared_factor_in_lowest_terms(ntaps, up, down,
                                                            k, wgmma, mode):
@@ -182,8 +194,8 @@ def test_fused_kernel_runs_a_shared_factor_in_lowest_terms(ntaps, up, down,
     g = math.gcd(up, down)
     u, d = up // g, down // g
     rtaps = resample_taps(up, down, k)
-    assert g > 1 and ff.wgmma_fits(ntaps, up, down, k)
-    assert ff.wgmma_fits(ntaps, u, d, len(rtaps) // u) == bool(wgmma)
+    assert g > 1 and ff.wgmma_fits(ntaps, up, down, k, mode)
+    assert ff.wgmma_fits(ntaps, u, d, len(rtaps) // u, mode) == bool(wgmma)
     rng = np.random.default_rng(50)
     taps = firwin(ntaps, 0.2)
     x = torch.from_numpy(rng.standard_normal(
@@ -192,8 +204,7 @@ def test_fused_kernel_runs_a_shared_factor_in_lowest_terms(ntaps, up, down,
         (8, ff.fused_state_len(ntaps))).astype(np.float32)).cuda()
     w = ff.fused_fir_resample_cuda.wgmma_launches
     z = ff.fused_fir_resample(x, taps, up, down, rtaps, zi=zi, mode=mode)
-    assert ff.fused_fir_resample_cuda.wgmma_launches == w + int(
-        wgmma and mode == "high")
+    assert ff.fused_fir_resample_cuda.wgmma_launches == w + wgmma
     ref = ff.fused_fir_resample_plain(x.double(), zi.double(), taps, u, d,
                                       rtaps, "highest")
     assert z.shape == ref.shape
@@ -201,7 +212,8 @@ def test_fused_kernel_runs_a_shared_factor_in_lowest_terms(ntaps, up, down,
 
 
 @pytest.mark.cuda
-def test_wgmma_path_loads_unaligned_inputs_itself():
+@pytest.mark.parametrize("mode", ["high", "highest"])
+def test_wgmma_path_loads_unaligned_inputs_itself(mode):
     """x and hist 4 bytes past a 16-byte boundary (contiguous views into
     larger buffers) cannot be bulk-copied: the producer warp loads them
     itself, and the output is bitwise that of aligned copies."""
@@ -217,8 +229,8 @@ def test_wgmma_path_loads_unaligned_inputs_itself():
                        generator=gen)[1:].view(8, hl)
     assert x.data_ptr() % 16 and hist.data_ptr() % 16
     w = ff.fused_fir_resample_cuda.wgmma_launches
-    z = ff.fused_fir_resample_cuda(x, hist, *args, "high")
-    ref = ff.fused_fir_resample_cuda(x.clone(), hist.clone(), *args, "high")
+    z = ff.fused_fir_resample_cuda(x, hist, *args, mode)
+    ref = ff.fused_fir_resample_cuda(x.clone(), hist.clone(), *args, mode)
     assert ff.fused_fir_resample_cuda.wgmma_launches == w + 2
     assert torch.equal(z, ref)
 
@@ -227,27 +239,31 @@ def test_wgmma_path_loads_unaligned_inputs_itself():
 @pytest.mark.parametrize("ntaps,mode,wgmma", [
     (1024, "high", 1),     # the headline: the wgmma path
     (2000, "high", 0),     # its tap tables outgrow shared memory: mma.sync
-    (1024, "highest", 0),  # fp32 FMA
+    (1024, "highest", 1),  # the six-pass wgmma path
+    (1536, "highest", 0),  # three parts outgrow shared memory: fp32 FMA
 ])
 def test_wgmma_launches_count_the_path_by_shape(ntaps, mode, wgmma):
     """``wgmma_launches`` counts one launch a call where the shape takes the
-    wgmma path and none elsewhere; ``launches`` counts every call.  The
-    fallback at 2000 taps holds the 80 dB floor too."""
+    wgmma path and none elsewhere, ``wgmma_highest_launches`` those at
+    "highest"; ``launches`` counts every call.  The fallbacks hold their
+    floors too (80 dB at 2000 taps, the kernel floor at "highest")."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     up, down, k = 147, 160, 64
-    assert ff.wgmma_fits(ntaps, up, down, k) == (wgmma == 1 or
-                                                 mode == "highest")
+    assert ff.wgmma_fits(ntaps, up, down, k, mode) == bool(wgmma)
     rng = np.random.default_rng(48)
     args = (firwin(ntaps, 0.2), up, down, resample_taps(up, down, k))
     x = torch.from_numpy(rng.standard_normal(
         (8, ff.fused_program_in(ntaps, up, down))).astype(np.float32)).cuda()
     n = ff.fused_fir_resample_cuda.launches
     w = ff.fused_fir_resample_cuda.wgmma_launches
+    wh = ff.fused_fir_resample_cuda.wgmma_highest_launches
     for _ in range(2):
         z = ff.fused_fir_resample(x, *args, mode=mode)
     assert ff.fused_fir_resample_cuda.launches == n + 2
     assert ff.fused_fir_resample_cuda.wgmma_launches == w + 2 * wgmma
+    assert ff.fused_fir_resample_cuda.wgmma_highest_launches == wh + 2 * (
+        wgmma and mode == "highest")
     ref = ff.fused_fir_resample_plain(
         x.double(), torch.zeros((8, ff.fused_state_len(ntaps)),
                                 dtype=torch.float64, device="cuda"),

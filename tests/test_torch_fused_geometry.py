@@ -199,6 +199,46 @@ def _wg_formula(ntaps, up, down, k):
     return down % 16 == 0 and gs >= 1 and smem <= 232448, smem
 
 
+def _wg_formula_highest(ntaps, up, down, k):
+    """``(fits, smem)`` of a "highest" wgmma block from the formula that
+    the comment above ``struct WgGeometry`` documents: the tap tables and
+    x planes in three parts, a ring of two quarter windows, the banded
+    bank in f32, y in f32."""
+    gs = (8192 - 63 - (k - 1)) // down
+    if down % 16:
+        return False, None
+    kt = -(-(ntaps + 63) // 16) * 16
+    nd = kt // 8 + 7
+    lx = -(-(8192 + kt - 64) // 64) * 64
+    las = (lx // 64) | 1
+    nt = -(-up // 8)
+    ks = max((min(8 * t + 7, up - 1) * down // up) - (8 * t * down // up)
+             + k for t in range(nt))
+    cw = max(3 * 128 * las, 4 * 8448)
+    smem = 128 + 3 * 128 * nd + 2 * lx + 4 * nt * (8 * ks + 4) + 2 * cw
+    return gs >= 1 and smem <= 232448, smem
+
+
+def _wg_doc():
+    text = CU.read_text()
+    return " ".join(w for w in text[
+        text.index("// Mirrored by _wgmma_smem_bytes"):
+        text.index("struct WgGeometry")].split() if w != "//")
+
+
+def test_wgmma_source_documents_the_highest_formula():
+    doc = _wg_doc()
+    for piece in ("cw = max(3 * 128 * las, 4 * 8448) (x planes | y in f32, "
+                  "padded)",
+                  "ks = the largest over n-tiles of (q of its last phase - "
+                  "q of its first) + k, q_p = p*down/up",
+                  "smem = 128 + 3 * 128 * nd + 2 * lx + 4 * nt * (8 * ks + "
+                  "4) + 2 * cw"):
+        assert piece in doc, piece
+    # the "high" formula comes first, under its own heading
+    assert doc.index("high: nt = ") < doc.index("highest: ks = ")
+
+
 def test_wgmma_source_documents_the_formula_and_constants_agree():
     text = CU.read_text()
     doc = " ".join(w for w in text[
@@ -228,6 +268,50 @@ def test_wgmma_mirror_equals_documented_formula(ntaps, up, down, k):
     if down % 16 == 0:
         assert ff._wgmma_smem_bytes(ntaps, up, down, k) == smem
     assert ff.wgmma_fits(ntaps, up, down, k) == fits
+
+
+@pytest.mark.parametrize("ntaps,up,down,k", WG_GRID)
+def test_wgmma_highest_mirror_equals_documented_formula(ntaps, up, down, k):
+    fits, smem = _wg_formula_highest(ntaps, up, down, k)
+    if down % 16 == 0:
+        assert ff._wgmma_smem_bytes(ntaps, up, down, k, "highest") == smem
+    assert ff.wgmma_fits(ntaps, up, down, k, "highest") == fits
+
+
+@pytest.mark.parametrize("ntaps,up,down,k,fits", [
+    (1024, 147, 160, 64, True),   # the channelizer's cell, 4 cards
+    (1089, 147, 160, 64, True),   # the longest filter that fits there
+    (1090, 147, 160, 64, False),  # three parts of tables and planes: full
+    (1536, 147, 160, 64, False),  # fits at "high"
+    (1777, 3, 16, 8, True),       # a small bank leaves room for the taps
+    (1778, 3, 16, 8, False),
+    (2000, 3, 16, 8, False),      # fits at "high"
+    (129, 3, 4, 8, False),        # the small test shape: fp32 FMA
+    (1024, 160, 147, 16, False),  # an odd down
+    (1024, 147, 20000, 64, False),  # no group fits a unit
+])
+def test_wgmma_highest_path_is_decided_by_the_shape(ntaps, up, down, k,
+                                                    fits):
+    assert ff.wgmma_fits(ntaps, up, down, k, "highest") == fits
+    if fits:
+        assert ff._wgmma_smem_bytes(ntaps, up, down, k,
+                                    "highest") <= ff._SMEM_MAX
+        assert ff.wgmma_fits(ntaps, up, down, k)  # and at "high"
+        assert ff.kernel_fits(ntaps, down, k)  # the fallback fits as well
+
+
+def test_headline_highest_wgmma_block_fits_one_sm():
+    """At 1024 taps, 147/160, K = 64: tap tables 54 912 B, the ring of two
+    quarter windows 18 432, the banded bank 44 080 (19 n-tiles of 72 taus
+    by 8 phases and 4 floats of padding), two consumers' three x planes
+    2 x 55 680 (y in f32, 32 768, takes their place): 228 912 B of the
+    232 448."""
+    assert ff._wgmma_band(147, 160, 64) == 72
+    assert ff.wgmma_fits(1024, 147, 160, 64, mode="highest")
+    assert ff._wgmma_smem_bytes(1024, 147, 160, 64, "highest") == 228912
+    assert (128 + 54912 + 18432 + 19 * (8 * 72 + 4) * 4 + 2 * 55680
+            == 228912 <= ff._SMEM_MAX)
+    assert ff._wgmma_smem_bytes(1024, 147, 160, 64, "highest") > TWO_PER_SM
 
 
 @pytest.mark.parametrize("ntaps,up,down,k,fits", [
@@ -295,6 +379,73 @@ def test_wgmma_tap_table_is_the_toeplitz_in_core_matrix_order(ntaps):
         n, k = np.meshgrid(np.arange(64), np.arange(kt), indexing="ij")
         got = part[n // 8 + k // 8, n % 8, k % 8]
         np.testing.assert_array_equal(got, want.numpy()[k, 63 - n])
+
+
+@pytest.mark.parametrize("ntaps", [17, 129, 1024])
+def test_wgmma_highest_tap_table_is_three_exact_parts(ntaps):
+    """At "highest" the table has three parts, each entry's bf16 hi, mid and
+    lo of the float32 tap (``bf16_hi_mid_lo``) at the place that "high"
+    puts hi and lo: they add up to the float32 Toeplitz exactly."""
+    taps = np.random.default_rng(ntaps).standard_normal(ntaps)
+    tab = ff.wgmma_tap_tables(taps, mode="highest")
+    kt = ff._wgmma_kt(ntaps)
+    assert tab.dtype == torch.bfloat16 and tab.is_contiguous()
+    assert tuple(tab.shape) == (3, kt // 8 + 7, 8, 8)
+    hi, mid, lo = tab.double().numpy()
+    d, r, c = np.ogrid[:kt // 8 + 7, :8, :8]
+    idx = kt - 1 - 8 * d - r - c
+    ok = (idx >= 0) & (idx < ntaps)
+    want = np.where(ok, taps.astype(np.float32)[np.clip(idx, 0, ntaps - 1)],
+                    0.0)
+    np.testing.assert_array_equal(hi + mid + lo, want)
+    assert np.all(np.abs(mid) <= np.abs(hi) * 2.0 ** -7)
+    assert np.all(np.abs(lo) <= np.abs(hi) * 2.0 ** -15)
+    with pytest.raises(ValueError):
+        ff.wgmma_tap_tables(taps, mode="fast")
+
+
+@pytest.mark.parametrize("ntaps", [17, 129])
+def test_wgmma_highest_descriptor_walk_is_the_fir(ntaps):
+    """The six passes as the kernel's descriptors address them
+    (``fir_wg_part6``): the w part at ``WP[s]`` tables past the hi table,
+    the x part at ``XP[s]`` plane sets past the hi planes, each pass over
+    every chunk.  In float64 the six passes are the FIR of the float32
+    taps and window but for the mid*lo, lo*mid and lo*lo terms they leave
+    out, under 2^-22 of each product."""
+    rng = np.random.default_rng(ntaps)
+    taps = rng.standard_normal(ntaps)
+    kt, nd, lx, las = ff._wgmma_geometry(ntaps, 3, 16, 8)[:4]
+    tab = ff.wgmma_tap_tables(taps, mode="highest").double().numpy()
+    tab = tab.reshape(3, -1)
+    xw = rng.standard_normal(lx).astype(np.float32)
+    q = np.arange(lx)
+    planes = np.zeros((3, 8 * las * 8))
+    for i, part in enumerate(bf.bf16_hi_mid_lo(torch.from_numpy(xw))):
+        planes[i][((q // 8) % 8 * las + q // 64) * 8 + q % 8] = part.numpy()
+
+    def core(mem, start, lbo, sbo, rows, cols):  # element offsets
+        r, c = np.meshgrid(rows, cols, indexing="ij")
+        return mem[start + r // 8 * sbo + c // 8 * lbo + r % 8 * 8 + c % 8]
+
+    xp, wp = (2, 0, 1, 1, 0, 0), (0, 2, 1, 0, 1, 0)
+    y = np.zeros((64, 128))
+    for s in range(6):
+        for ch in range(kt // 16):
+            a = core(tab[wp[s]], 128 * ch, 64, 64, np.arange(64),
+                     np.arange(16))
+            b = core(planes[xp[s]], ((2 * ch) % 8 * las + ch // 4) * 8,
+                     las * 8, 64, np.arange(128), np.arange(16))
+            y += a @ b.T
+    h32 = taps.astype(np.float32).astype(np.float64)
+    x64 = xw.astype(np.float64)
+    i = np.arange(8192)
+    win = x64[i[:, None] + kt - 64 - np.arange(ntaps)[None, :]]
+    ref, mag = win @ h32, np.abs(win) @ np.abs(h32)
+    out = np.zeros(8192)
+    n, m = np.meshgrid(np.arange(64), np.arange(128), indexing="ij")
+    out[64 * m + 63 - n] = y
+    assert np.all(np.abs(out - ref) <= 2.0 ** -22 * mag)
+    assert np.any(out != ref)  # the terms left out are there
 
 
 @pytest.mark.parametrize("ntaps", [17, 129])

@@ -193,6 +193,69 @@ def test_sharded_step_across_cards_is_one_card(cards, method, halo, frames,
         assert crossed[1] == 2 * cards
 
 
+@pytest.mark.parametrize("mode", ["highest", "high"])
+@pytest.mark.parametrize("cards", [2, 4])
+def test_rdma_step_at_the_cell_shape_is_one_card_and_unsharded(cards, mode):
+    """The step that the four-card benchmark cell runs, ``fused`` with
+    ``halo="rdma"`` a rank a card, at its filter (1024 taps, 147/160, K =
+    64) on 8 channels, where B1 takes its wgmma path at both precisions:
+    over two steps with the state carried, bitwise the same ranks on
+    ``cuda:0`` and the unsharded ``Channelizer.step`` streamed over the same
+    samples a rank's block at a time (so B1's windows hold their bits at a
+    time shard's edge, across cards; one unsharded call of all the ranks'
+    samples frames them in one cuFFT plan of another batch, whose bits
+    differ); every B1 launch of the cards' run a wgmma launch."""
+    _need(cards)
+    from llzlab_tpu_torch import Channelizer
+    from llzlab_tpu_torch.kernels import fused_fir_resample as ff
+    from llzlab_tpu_torch.kernels.halo_ring import check_exchanges
+    from llzlab_tpu_torch.parallel.mesh import gather, shard
+    from llzlab_tpu_torch.runtime.platform import precision_scope
+
+    c = 8
+    ch = Channelizer(fir_taps=firwin(1024, 0.4, window="hamming"), up=147,
+                     down=160, taps_per_phase=64, fft_n=2048,
+                     fir_method="fused", device=torch.device("cuda", 0))
+    assert ff.wgmma_fits(1024, ch.up, ch.down, ch.k, mode)
+    t_loc = ch.block_multiple()
+    t_step = cards * t_loc
+    x = torch.from_numpy(np.random.default_rng(54).standard_normal(
+        (c, 2 * t_step)).astype(np.float32)).cuda()
+    counts = ("launches", "wgmma_launches", "wgmma_highest_launches")
+
+    def run(mesh):
+        step = ch.sharded_step(mesh, halo="rdma")
+        st, out = ch.init_state(c), []
+        for i in range(2):
+            spec, st = step(shard(x[:, i * t_step:(i + 1) * t_step], mesh),
+                            st)
+            out.append(gather(spec, mesh, dim=1).cpu())
+        check_exchanges(mesh)
+        return out, [v.cpu() for v in st]
+
+    with precision_scope(mode):
+        before = [getattr(ff.fused_fir_resample_cuda, a) for a in counts]
+        multi = run(_mesh(range(cards)))
+        after = [getattr(ff.fused_fir_resample_cuda, a) for a in counts]
+        one = run(_mesh([0] * cards))
+        st, ref = ch.init_state(c), []
+        for i in range(2):
+            blocks = []
+            for r in range(cards):
+                s0 = i * t_step + r * t_loc
+                spec, st = ch.step(x[:, s0:s0 + t_loc], st)
+                blocks.append(spec)
+            ref.append(torch.cat(blocks, dim=1).cpu())
+        unsharded = ref, [v.cpu() for v in st]
+    launched = [a - b for a, b in zip(after, before)]
+    assert launched == [2 * cards, 2 * cards,
+                        2 * cards * (mode == "highest")]
+    for what, other in (("the same ranks on cuda:0", one),
+                        ("the unsharded stream", unsharded)):
+        for a, b in zip(multi[0] + multi[1], other[0] + other[1]):
+            assert a.shape == b.shape and torch.equal(a, b), what
+
+
 @pytest.mark.parametrize("shape", [(2, 2), (4, 1)])
 @pytest.mark.parametrize("method,frames", [("fused", "local"),
                                            ("block2", "a2a"),
