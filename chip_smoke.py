@@ -1461,7 +1461,22 @@ def config_4_and_tools(dev, smi):
     if times[auto] > 1.5 * times[fastest]:
         raise RuntimeError(f"engine='auto' takes {auto!r}, 1.5x slower than "
                            f"{fastest!r} on this card")
-    del xp, blocks, x
+    # the frames each engine synthesised, and which one a block through
+    # engine="auto" counts under
+    from llzlab_tpu_torch.runtime.profiler import counters
+
+    auto_stage = SpectralGainStage(gain, n_fft=n_fft, hop=hop)
+    before = counters()["frames"]
+    auto_stage.apply(blocks[1], auto_stage.init_state((c,), device=dev))
+    frames = counters()["frames"]
+    took = {k: v - before.get(k, 0) for k, v in frames.items()
+            if v != before.get(k, 0)}
+    log(f"[config4] frames by engine so far {frames}; a tool block through "
+        f"engine='auto' counts {took} ({c} x {nf_blk}); a tool block takes "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
+    if took != {auto: c * nf_blk}:
+        raise RuntimeError(f"engine='auto' counted {took}, not {auto!r}")
+    del xp, blocks, x, auto_stage
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:

@@ -44,6 +44,7 @@ import torch
 from llzlab_tpu_torch.ops import transform as _fft
 from llzlab_tpu_torch.ops.window import get_window
 from llzlab_tpu_torch.runtime.platform import matmul_precision_name
+from llzlab_tpu_torch.runtime.profiler import span
 
 __all__ = ["stft", "istft", "frame", "overlap_add", "stft_num_frames",
            "windowed_rdft", "windowed_irdft_ola", "composed_wola"]
@@ -102,11 +103,12 @@ def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
     lead = tuple(frames.shape[:-2])
     chunks = frames.reshape(lead + (nf, ratio, hop))
     nbh = nf - 1 + ratio
-    acc = torch.zeros(lead + (nbh, hop), dtype=frames.dtype,
-                      device=frames.device)
-    for k in range(ratio):
-        acc[..., k:k + nf, :] += chunks[..., :, k, :]
-    return acc.reshape(lead + (nbh * hop,))
+    with span("ops", "overlap_add"):
+        acc = torch.zeros(lead + (nbh, hop), dtype=frames.dtype,
+                          device=frames.device)
+        for k in range(ratio):
+            acc[..., k:k + nf, :] += chunks[..., :, k, :]
+        return acc.reshape(lead + (nbh * hop,))
 
 
 def _use_wdft(n_fft: int, window, method: str) -> bool:

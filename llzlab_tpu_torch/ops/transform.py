@@ -58,7 +58,8 @@ def rfft(x: torch.Tensor, n: Optional[int] = None, *, method: str = "auto"):
 
 def irfft(x: torch.Tensor, n: Optional[int] = None, *, method: str = "auto"):
     _check_method(method)
-    return torch.fft.irfft(x, n=n or 2 * (x.shape[-1] - 1), dim=-1)
+    with span("ops", "irfft"):
+        return torch.fft.irfft(x, n=n or 2 * (x.shape[-1] - 1), dim=-1)
 
 
 def rfft_pair(x: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:

@@ -31,7 +31,7 @@ from llzlab_tpu_torch.ops import resample as _resample
 from llzlab_tpu_torch.ops import spectral as _stft
 from llzlab_tpu_torch.ops import transform as _fft
 from llzlab_tpu_torch.runtime.platform import precision_scope
-from llzlab_tpu_torch.runtime.profiler import request, span
+from llzlab_tpu_torch.runtime.profiler import count_frames, request, span
 
 __all__ = [
     "Stage",
@@ -261,6 +261,11 @@ class SpectralGainStage(Stage):
     stage's work (default "highest"; ``None`` inherits the environment).
     Its products and FFTs are fp32 at every name, so the name reaches
     only a hand kernel that a callable gain might run.
+
+    Each call counts the frames it synthesises (rows × ``T // hop``) under
+    its engine in ``runtime.profiler.counters()["frames"]``; under a
+    profiler the carry (the tails' adds, the division by the envelope,
+    the new state) is the span ``llz/ops/wola_state``.
     """
 
     def __init__(
@@ -356,15 +361,17 @@ class SpectralGainStage(Stage):
                                    method=self.method) * w
                 buf = _stft.overlap_add(synth * mask[:, None], self.hop)
         env = _stft.overlap_add((w * w) * mask[:, None], self.hop)
-        buf[..., :ov] += state["ola"]
-        env[:ov] += state["env"]
-        y = (buf[..., :t] / torch.clamp(env[:t], min=1e-8)).to(x.dtype)
-        new_state = {
-            "x_hist": ext[..., t:].clone(),
-            "ola": buf[..., t:].clone(),
-            "env": env[t:].clone(),
-            "pos": torch.clamp(state["pos"] + t, max=ov).to(torch.int32),
-        }
+        with span("ops", "wola_state"):
+            buf[..., :ov] += state["ola"]
+            env[:ov] += state["env"]
+            y = (buf[..., :t] / torch.clamp(env[:t], min=1e-8)).to(x.dtype)
+            new_state = {
+                "x_hist": ext[..., t:].clone(),
+                "ola": buf[..., t:].clone(),
+                "env": env[t:].clone(),
+                "pos": torch.clamp(state["pos"] + t, max=ov).to(torch.int32),
+            }
+        count_frames(self.engine, math.prod(x.shape[:-1]) * nf)
         return y, new_state
 
     def flush(self, state, dtype=torch.float32):

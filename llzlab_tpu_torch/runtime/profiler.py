@@ -26,8 +26,9 @@ calls.
   or without a profiler: request calls, the bytes every exchange between
   ranks notes (``parallel.mesh.note_traffic``) by kind, the kernels'
   launches (their wrappers' ``.launches`` attributes), the builds of
-  ``kernels/_build.py`` and the IIR scan's reads of its states from the
-  device (``ops.iir.apply_section_host``) by calling op.
+  ``kernels/_build.py``, the IIR scan's reads of its states from the
+  device (``ops.iir.apply_section_host``) by calling op, and the frames
+  ``SpectralGainStage`` synthesises, by engine.
 * :func:`profile_calls` profiles some calls and says what the cards did.
   ``chip_smoke.py`` and the ``scripts/profile_*_torch.py`` scripts read
   their profiles through it.
@@ -67,6 +68,8 @@ _TRAFFIC: Dict[str, int] = {}
 _BUILDS: Dict[str, list] = {}
 #: the IIR scan's device-to-host reads of its states, by calling op
 _STATE_READS: Dict[str, int] = {}
+#: frames synthesised by ``SpectralGainStage``, by engine
+_FRAMES: Dict[str, int] = {}
 
 
 def span(layer: str, name: str):
@@ -110,6 +113,12 @@ def count_state_reads(op: str, n: int) -> None:
     _STATE_READS[op] = _STATE_READS.get(op, 0) + n
 
 
+def count_frames(engine: str, n: int) -> None:
+    """Count ``n`` frames synthesised by ``engine``: a plain integer add,
+    always on, as :func:`count_state_reads`."""
+    _FRAMES[engine] = _FRAMES.get(engine, 0) + n
+
+
 def counters() -> dict:
     """A snapshot of the program's counters since the process started::
 
@@ -119,10 +128,13 @@ def counters() -> dict:
                       "cross_card_launches": n, ...}, ...,
                       "sos_scan": {"launches": n}},
          "builds": {source: {"builds": n, "nvcc_s": seconds}},
-         "state_reads": {op: reads}}
+         "state_reads": {op: reads},
+         "frames": {engine: frames}}
 
     ``traffic_bytes`` counts as ``utils.profiling.collective_traffic``
-    does (a send's payload times its sends)."""
+    does (a send's payload times its sends); ``frames`` counts the frames
+    ``SpectralGainStage.apply`` synthesised (rows × block // hop a call),
+    by the engine that ran them."""
     from llzlab_tpu_torch.kernels import block2_fir as _b2
     from llzlab_tpu_torch.kernels import fused_fir_resample as _b1
     from llzlab_tpu_torch.kernels import halo_fir_fused as _b4
@@ -143,6 +155,7 @@ def counters() -> dict:
             "builds": {k: {"builds": n, "nvcc_s": s}
                        for k, (n, s) in _BUILDS.items()},
             "state_reads": dict(_STATE_READS),
+            "frames": dict(_FRAMES),
         }
 
 

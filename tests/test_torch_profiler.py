@@ -243,7 +243,7 @@ def test_counters_count_the_calls_and_the_bytes_collective_traffic_sees(
 def test_counters_read_the_kernels_launches_and_the_builds():
     got = profiler.counters()
     assert set(got) == {"calls", "traffic_bytes", "launches", "builds",
-                        "state_reads"}
+                        "state_reads", "frames"}
     assert set(got["launches"]) == {"B1", "B2", "B3", "B4", "sos_scan"}
     assert got["launches"]["B3"].keys() == {
         "launches", "cross_card_launches", "cross_process_launches",
