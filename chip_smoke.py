@@ -206,8 +206,9 @@ PREVIOUS = {
 }
 KERNEL_NAMES = ("block2_fir", "fused_fir_resample", "halo_ring",
                 "halo_fir_fused")
-#: the IIR scan kernel (phase 8), built with the others in phase 1
-SCAN_KERNEL = "sos_scan"
+#: the IIR scan kernel (phase 8) and config 4's frame-map kernel (phase 7),
+#: built with the others in phase 1
+SCAN_KERNEL, WOLA_KERNEL = "sos_scan", "wola_gain"
 SMALL = dict(ntaps=129, cutoff=0.2, up=3, down=4, k=8, channels=8)
 #: the channelizer tool's runs in phase 7, the config's 2048-point frames
 #: through the ols FIR: its 1024 channels on one rank (983 040 samples, the
@@ -1335,11 +1336,160 @@ def wola_f64(x, gain, n_fft: int, hop: int, window: str):
     return out / np.maximum(env, 1e-8)
 
 
+#: the wola_gain kernel's error against float64 over a stream, its start
+#: included, as a multiple of the error of the same WOLA on cuFFT (the
+#: composite path, or the sharded path on it), on the same input: two
+#: float32 computations whose error sits in the few positions where the
+#: envelope nears zero.  On the CPU the kernel's plain version reads 0.81
+#: to 1.31 times the composite path's, two steps of 8 rows from the
+#: stream's start, on 6 seeds with either gain.
+WOLA_VS_CUFFT = 2.0
+
+
+def composite_path(gain, n_fft: int, hop: int, window: str, dev):
+    """``SpectralGainStage``'s reference engine on cuFFT (frame, window,
+    rfft, gain, irfft, window, overlap-add as separate launches) on the
+    card.  A callable gain keeps that path, where a static one takes the
+    wola_gain kernel; the callable returns the static gain, so the
+    products are the same."""
+    import torch
+
+    from llzlab_tpu_torch import SpectralGainStage
+
+    g = torch.from_numpy(np.asarray(gain, np.float32)).to(dev)
+    return SpectralGainStage(lambda spec: g, n_fft=n_fft, hop=hop,
+                             window=window)
+
+
+def held_to_cufft(what, got, yardstick, want, limit=None) -> float:
+    """Log the relative L2 errors of ``got`` (the wola_gain kernel's) and of
+    ``yardstick`` (the same WOLA on cuFFT) against float64 ``want``; raise
+    unless the kernel's is at most :data:`WOLA_VS_CUFFT` times the
+    yardstick's, and at most ``limit`` where one is given.  Returns the
+    kernel's."""
+    def rel(y):
+        return float((y.double() - want).norm() / want.norm())
+
+    mine, theirs = rel(got), rel(yardstick)
+    cap = WOLA_VS_CUFFT * theirs if limit is None else min(
+        limit, WOLA_VS_CUFFT * theirs)
+    log(f"[config4] {what} vs float64, relative L2: the wola_gain kernel "
+        f"{mine:.3e}, on cuFFT {theirs:.3e} (ratio {mine / theirs:.3f}; "
+        f"limit {WOLA_VS_CUFFT} x cuFFT's"
+        + ("" if limit is None else f" and {limit:g}") + ")")
+    if not mine <= cap:
+        raise RuntimeError(f"{what}: the wola_gain kernel {mine:.3e} vs "
+                           f"float64, above {cap:.3e}")
+    return mine
+
+
+def wola_gain_at_the_step(dev, smi, xb, tool_gain, n_fft: int, hop: int,
+                          window: str) -> dict:
+    """Phase 7: the wola_gain kernel (config 4's frame map in one launch)
+    at a step of the benchmark's cell, ``xb`` (256 × 95 744, the ``stft``
+    tool's block).  Two steps of 8 channels from the stream's start
+    against the benchmark's float64 WOLA (``portbench/reference_stft.py``),
+    with the ``stft`` tool's gain (``tool_gain``, -6 dB with a notch) and
+    with the benchmark's, each held to the composite path's error on cuFFT
+    (:func:`held_to_cufft`), the benchmark's also to 1e-6.  The cell's path,
+    ``Chain([SpectralGainStage])`` over steps from a fresh state, counted
+    launch by launch; from a state in the stream's interior, bit for bit its
+    plain version and the same over two runs; timed beside its plain
+    version, the composite path on cuFFT (``library_ms``, the yardstick
+    only) and its least time.  Returns the ``kernels`` line's entry."""
+    import torch
+
+    from llzlab_tpu_torch import Chain, SpectralGainStage
+    from llzlab_tpu_torch.kernels import wola_gain as wg
+    from portbench import checks_stft, reference_stft
+
+    c, t = xb.shape
+    bench_gain = checks_stft.gain({"stft": {"n_fft": n_fft}}, 26)
+    rows = CZ_GOLDEN_CHANNELS
+    x2 = torch.cat([xb[:rows], xb[:rows].flip(-1)], -1)
+    rel = {}
+    for name, gain, limit in (("the stft tool's gain", tool_gain, None),
+                              ("the benchmark's gain", bench_gain, 1e-6)):
+        want = reference_stft.stream(x2, gain.astype(np.float64), n_fft, hop)
+        outs = []
+        for path in (SpectralGainStage(gain, n_fft=n_fft, hop=hop,
+                                       window=window),
+                     composite_path(gain, n_fft, hop, window, dev)):
+            st, ys = path.init_state((rows,), device=dev), []
+            for piece in (x2[:, :t], x2[:, t:]):
+                y, st = path.apply(piece, st)
+                ys.append(y)
+            outs.append(torch.cat(ys, -1))
+        rel[name] = held_to_cufft(
+            f"two steps of {rows} x {t} from the stream's start, {name},",
+            *outs, want, limit)
+    del x2, want, outs, ys
+
+    # the cell's path: a Chain of the stage, steps from a fresh state, one
+    # launch each
+    stage = SpectralGainStage(bench_gain, n_fft=n_fft, hop=hop, window=window)
+    chain, steps = Chain([stage]), 4
+    sts = chain.init_state((c,), device=dev)
+    wg.wola_gain_cuda.launches = 0
+    for _ in range(steps):
+        _, sts = chain.apply(xb, sts)
+    torch.cuda.synchronize()
+    launches = wg.wola_gain_cuda.launches
+    log(f"[config4] Chain([SpectralGainStage]) over {steps} steps of {c} x "
+        f"{t}: {launches} wola_gain launches")
+    if launches != steps:
+        raise RuntimeError(f"the cell's path launched wola_gain {launches} "
+                           f"times in {steps} steps")
+    st = sts[0]
+    tables = stage._tables_on(dev)
+    args = (xb, st["x_hist"], st["ola"], st["env"], st["pos"], tables)
+    got, again = wg.wola_gain_cuda(*args), wg.wola_gain_cuda(*args)
+    plain = wg.wola_gain_plain(*args)
+    torch.cuda.synchronize()
+    err = max(float((a.double() - b.double()).abs().max())
+              for a, b in zip(got, plain))
+    same = all(torch.equal(a, b) for a, b in zip(got, plain))
+    rerun = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"[config4] wola_gain at {c} x {t} from a state in the stream's "
+        f"interior: outputs and state bitwise its plain version {same} (max "
+        f"|kernel - plain| {err:.3e}), bitwise over two runs {rerun}")
+    if not (same and rerun):
+        raise RuntimeError("wola_gain: not bitwise its plain version or "
+                           "not the same over two runs")
+    del got, again, plain
+    composite = composite_path(bench_gain, n_fft, hop, window, dev)
+    ms = cuda_ms(lambda: wg.wola_gain_cuda(*args))
+    plain_ms = cuda_ms(lambda: wg.wola_gain_plain(*args), iters=3, warmup=1)
+    library_ms = cuda_ms(lambda: composite.apply(xb, st))
+    enqueue_ms = host_ms(lambda: stage.apply(xb, st))
+    # the configuration's work (portbench/roofline_stft.py): two real FFTs
+    # of 2.5 N log2 N and the window, gain and overlap-add products a
+    # frame, or each sample read and written once
+    frames = c * (t // hop)
+    flop = frames * (5 * n_fft * np.log2(n_fft) + 4 * n_fft + 2)
+    bound, by = fir_bound_ms(flop, 8.0 * c * t)
+    log(f"[time] wola_gain {c}x{t}: {ms:.4f} ms ({c * t / ms / 1e3:.0f} "
+        f"Msamples/s; the stage enqueues it in {enqueue_ms:.3f} ms), plain "
+        f"{plain_ms:.3f} ms, the composite path on cuFFT {library_ms:.4f} "
+        f"ms, bound {bound:.4f} ms ({by}) on {smi}")
+    return {"name": WOLA_KERNEL, "route": "cuda",
+            "source": f"llzlab_tpu_torch/csrc/{WOLA_KERNEL}.cu",
+            "replaces": None, "launches": launches,
+            "launches_by_path": {"config 4 (stage)": launches},
+            "max_abs_err": err,
+            "rel_err_f64": rel["the benchmark's gain"],
+            "rel_err_f64_tool_gain": rel["the stft tool's gain"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": library_ms,
+            "enqueue_ms": enqueue_ms}
+
+
 def config_4_and_tools(dev, smi):
     """Phase 7: config 4 at its published size through the three engines
-    of ``SpectralGainStage``, the ``stft`` and ``channelizer`` tools, and
-    kernel B2 beyond its former limits.  Returns the largest max |kernel -
-    plain| of B2 here."""
+    of ``SpectralGainStage`` (the reference one on the wola_gain kernel),
+    the kernel at the benchmark's step, the ``stft`` and ``channelizer``
+    tools, and kernel B2 beyond its former limits.  Returns the largest max
+    |kernel - plain| of B2 here and the wola_gain kernel's entry."""
     import tempfile
 
     import torch
@@ -1352,6 +1502,7 @@ def config_4_and_tools(dev, smi):
     from llzlab_tpu_torch.io.wav import read_wav, write_wav
     from llzlab_tpu_torch.kernels import block2_fir as bf
     from llzlab_tpu_torch.ops.fir import block2_block, fir_filter
+    from portbench import reference_stft
 
     def check(what, got_db, floor):
         log(f"[config4] {what}: {got_db:.1f} dB (floor {floor})")
@@ -1411,16 +1562,33 @@ def config_4_and_tools(dev, smi):
             check(f"{engine}: streamed vs one shot, every sample",
                   device_snr_db(one[:, lat:lat + t],
                                 streamed[:, lat:lat + t]), STFT_STREAM_DB)
+            comp = run(composite_path(gain, n_fft, hop, window, dev),
+                       blocks)
             spec = stft(x, n_fft=n_fft, hop=hop, window=window)
             y_ops = istft(spec * torch.from_numpy(gain).to(dev), n_fft=n_fft,
                           hop=hop, window=window, length=t)
             # up to T - n_fft: beyond it the stage's frames reach into the
             # tool's zero padding, and istft's stop at the signal's end
-            check(f"istft(gain * stft(x)) vs the streamed stage, samples "
-                  f"[0, {t - n_fft})", device_snr_db(
-                      y_ops[:, :t - n_fft], streamed[:, lat:lat + t - n_fft]),
+            check(f"istft(gain * stft(x)) vs the streamed stage's composite "
+                  f"path on cuFFT, samples [0, {t - n_fft})", device_snr_db(
+                      y_ops[:, :t - n_fft], comp[:, lat:lat + t - n_fft]),
                   STFT_STREAM_DB)
-            del spec, y_ops
+            # the stage runs the wola_gain kernel, whose FFT is its own: on
+            # the interior two float32 computations of the same WOLA (held
+            # as two engines are), and every sample of the stream, its start
+            # included, held to cuFFT's error against float64
+            check(f"istft(gain * stft(x)) (cuFFT) vs the streamed stage "
+                  f"(the wola_gain kernel), interior [{lo}, {hi})",
+                  device_snr_db(y_ops[:, lo:hi],
+                                streamed[:, lat + lo:lat + hi]),
+                  STFT_INTERIOR_DB)
+            rows = CZ_GOLDEN_CHANNELS
+            held_to_cufft(
+                f"the stage streamed in the tool's blocks, {rows} channels, "
+                f"every sample", streamed[:rows, :nblk * blk],
+                comp[:rows, :nblk * blk], reference_stft.stream(
+                    xp[:rows], gain.astype(np.float64), n_fft, hop))
+            del spec, y_ops, comp
             one_ref, streamed_ref = one[:, :t].cpu(), streamed[:, :t].cpu()
         else:
             check(f"{engine}: streamed vs one shot, interior [{lo}, {hi})",
@@ -1476,6 +1644,8 @@ def config_4_and_tools(dev, smi):
         + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()))
     if took != {auto: c * nf_blk}:
         raise RuntimeError(f"engine='auto' counted {took}, not {auto!r}")
+    wola_entry = wola_gain_at_the_step(dev, smi, blocks[1], gain, n_fft,
+                                       hop, window)
     del xp, blocks, x, auto_stage
     torch.cuda.empty_cache()
 
@@ -1590,7 +1760,7 @@ def config_4_and_tools(dev, smi):
               KERNEL_FLOOR_DB[mode])
     del xr, y
     torch.cuda.empty_cache()
-    return err
+    return err, wola_entry
 
 
 def config_3_and_tool(dev, smi):
@@ -2210,6 +2380,7 @@ def parallel_paths(dev, smi, wrappers):
     from llzlab_tpu_torch.runtime.health import heartbeat
     from llzlab_tpu_torch.runtime.profiler import counters, profile_calls
     from llzlab_tpu_torch.utils.profiling import collective_traffic
+    from portbench import reference_stft
 
     by_path = {name: {} for name in wrappers}
     B1, B2, B3, B4 = ("fused_fir_resample", "block2_fir", "halo_ring",
@@ -2635,19 +2806,32 @@ def parallel_paths(dev, smi, wrappers):
     p4 = shard(x4, mesh14)
     ov = n_fft - hop
     cut = P10_SPECTRAL_T - n_fft
+    rows = CZ_GOLDEN_CHANNELS
+    want4 = reference_stft.stream(x4[:rows], gain.astype(np.float64), n_fft,
+                                  hop)[:, ov:cut + ov]
     for engine in ("reference", "cwola"):
         path = f"config 4 spectral_gain_sharded {engine} 1x4"
         stage = SpectralGainStage(gain, n_fft=n_fft, hop=hop,
                                   window=sc.window, engine=engine)
+        # held to the same arithmetic unsharded: for the reference engine
+        # the stage's composite path on cuFFT, the sharded path's own
+        same = stage if engine == "cwola" else composite_path(
+            gain, n_fft, hop, sc.window, dev)
         st0 = stage.init_state((cfg4.channels,), device=dev)
         # the stage's output lags its input by n_fft - hop samples
-        y_ref = stage.apply(x4, st0)[0][:, ov:cut + ov]
+        y_ref = same.apply(x4, st0)[0][:, ov:cut + ov]
         y = run_path(path, set(), lambda: gather(spectral_gain_sharded(
             p4, gain, mesh14, n_fft=n_fft, hop=hop, window=sc.window,
             engine=engine), mesh14))
         check(f"{path} interior (all but the last {n_fft}) vs the unsharded "
-              f"stage", device_snr_db(y_ref, y[:, :cut]),
-              SPECTRAL_SP_FLOOR_DB)
+              f"stage" + ("'s composite path" if same is not stage else ""),
+              device_snr_db(y_ref, y[:, :cut]), SPECTRAL_SP_FLOOR_DB)
+        if same is not stage:
+            # the stage as it runs on the card, on the wola_gain kernel
+            held_to_cufft(f"{path}: the unsharded stage and the sharded path "
+                          f"on {rows} channels, all but the last {n_fft}",
+                          stage.apply(x4, st0)[0][:rows, ov:cut + ov],
+                          y[:rows, :cut], want4)
         traffic(path, lambda: spectral_gain_sharded(
             p4, gain, mesh14, n_fft=n_fft, hop=hop, window=sc.window,
             engine=engine), 3 * (2 * cfg4.channels * ov * 4 + ov * 4))
@@ -2655,7 +2839,7 @@ def parallel_paths(dev, smi, wrappers):
             p4, gain, mesh14, n_fft=n_fft, hop=hop, window=sc.window,
             engine=engine), lambda: stage.apply(x4, st0),
             "unsharded stage")
-    del x4, p4, y, y_ref
+    del x4, p4, y, y_ref, same, want4
     torch.cuda.empty_cache()
 
     # ---- the heartbeat on the (2, 2) mesh -------------------------------
@@ -2713,6 +2897,15 @@ def main() -> int:
     import torch
     import torch.nn.functional as F
 
+    # One process runs every phase, and tables cached by the early phases
+    # stay allocated: with fixed segments they pin a free remainder a phase
+    # before left (a 2.19 GiB one where phase 7's cwola one-shot product
+    # stood), and phase 10's 4.6 GiB steps find 26 GiB free but none in
+    # one piece.  Segments that grow and shrink hold no such remainder.
+    # Set before the first allocation, in this process only: the workers
+    # of phases 1 and 12 choose their own.
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+
     from llzlab_tpu_torch import (Chain, Channelizer, FIRStage,
                                   FusedFirResampleStage, ResampleStage,
                                   firwin, gather_time, irfft, resample_taps,
@@ -2760,7 +2953,7 @@ def main() -> int:
         f"{torch.version.cuda}; nvidia-smi name, power.limit:")
     log(smi)
     t0 = time.perf_counter()
-    built = KERNEL_NAMES + (SCAN_KERNEL,)
+    built = KERNEL_NAMES + (SCAN_KERNEL, WOLA_KERNEL)
     with concurrent.futures.ThreadPoolExecutor(len(built)) as pool:
         list(pool.map(_build.build, built))  # one nvcc each, together
     log(f"[build] {', '.join(n + '.cu' for n in built)} for sm_90a "
@@ -3434,8 +3627,8 @@ def main() -> int:
     errors["block2_fir"] = max(errors["block2_fir"], err)
 
     # ---- phase 7: config 4, the stft and channelizer tools, B2's limits --
-    errors["block2_fir"] = max(errors["block2_fir"],
-                               config_4_and_tools(dev, smi))
+    err, wola_entry = config_4_and_tools(dev, smi)
+    errors["block2_fir"] = max(errors["block2_fir"], err)
 
     # ---- phase 8: config 3 and the iir tool ------------------------------
     reset_launches()
@@ -3517,6 +3710,7 @@ def main() -> int:
     kernels.append({"name": SCAN_KERNEL, "route": "cuda",
                     "source": f"llzlab_tpu_torch/csrc/{SCAN_KERNEL}.cu",
                     "replaces": None, "library_ms": None, **scan_entry})
+    kernels.append(wola_entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from llzlab_tpu_torch.kernels import fused_fir_resample as _ff
+from llzlab_tpu_torch.kernels import wola_gain as _wg
 from llzlab_tpu_torch.ops import fir as _fir
 from llzlab_tpu_torch.ops import fused_chain as _fc
 from llzlab_tpu_torch.ops import iir as _iir
@@ -244,7 +245,12 @@ class SpectralGainStage(Stage):
     Engines (``engine=``):
 
     * ``"reference"``: frame → window → ``rfft`` (cuFFT) → gain → ``irfft``
-      → window → overlap-add;
+      → window → overlap-add; on a CUDA tensor with a static gain, a named
+      window and a frame map the kernel takes (``kernels/wola_gain.py``
+      ``supports``: power-of-two ``n_fft`` from 256 to 4096, ``n_fft /
+      hop ≤ 8``) the whole map, carry included, is one launch of
+      ``csrc/wola_gain.cu``: the same arithmetic with its FFT written
+      out, at fp32, no spectrum-sized intermediate in device memory;
     * ``"wdft"``: the window folded into dense rDFT tables
       (``ops/spectral.windowed_rdft`` / ``windowed_irdft_ola``), two
       products a frame; the engine a callable gain needs among the two
@@ -254,8 +260,9 @@ class SpectralGainStage(Stage):
       (``ops/spectral.composed_wola``); a callable gain raises;
     * ``"auto"``: ``"reference"``, on every device.  The JAX package takes
       cwola / wdft on a TPU, where its FFT is a matrix product; on the
-      H100 the card's times decide (``PERF.md``, config 4): cuFFT's
-      reference engine is the fastest of the three there.
+      H100 the card's times decide (``PERF.md``, config 4): the
+      reference engine, on the wola_gain kernel where it runs, is the
+      fastest of the three there.
 
     ``precision`` pins the precision name (``precision_scope``) for the
     stage's work (default "highest"; ``None`` inherits the environment).
@@ -265,7 +272,8 @@ class SpectralGainStage(Stage):
     Each call counts the frames it synthesises (rows × ``T // hop``) under
     its engine in ``runtime.profiler.counters()["frames"]``; under a
     profiler the carry (the tails' adds, the division by the envelope,
-    the new state) is the span ``llz/ops/wola_state``.
+    the new state) is the span ``llz/ops/wola_state``, and the kernel's
+    launch ``llz/kernels/wola_gain``.
     """
 
     def __init__(
@@ -305,6 +313,7 @@ class SpectralGainStage(Stage):
         #: output samples lag input samples by this much (WOLA lookback)
         self.latency = self.n_fft - self.hop
         self._gain_dev = {}
+        self._tables_dev = {}
 
     def init_state(self, batch_shape, *, device, dtype=torch.float32):
         ov = self.latency
@@ -323,6 +332,41 @@ class SpectralGainStage(Stage):
             self._gain_dev[key] = torch.from_numpy(self.gain).to(device)
         return self._gain_dev[key]
 
+    def _tables_on(self, device) -> "_wg.WolaTables":
+        """The kernel's tables (twiddles, window, gain) on ``device``,
+        built and copied there once."""
+        key = str(device)
+        if key not in self._tables_dev:
+            self._tables_dev[key] = _wg.wola_tables(
+                self.gain, self.n_fft, self.hop, self.window, device)
+        return self._tables_dev[key]
+
+    def _takes_kernel(self, x) -> bool:
+        """Whether the frame map runs as one launch of the kernel: what the
+        stage observes (engine, gain, window, sizes, device, rows)."""
+        return (x.is_cuda and self.engine == "reference"
+                and not callable(self.gain) and math.prod(x.shape[:-1]) > 0
+                and _wg.supports(self.n_fft, self.hop, self.window))
+
+    def _apply_kernel(self, x, state):
+        """``apply`` on the kernel: the state's tensors in, fresh ones out."""
+        ov, t = self.latency, x.shape[-1]
+        lead = tuple(x.shape[:-1])
+        rows = math.prod(lead)
+        _fft._check_method(self.method)
+        x2 = x.reshape(rows, t).to(torch.float32)
+        if x2.stride(-1) != 1:
+            x2 = x2.contiguous()
+        y, xh, ola, env, pos = _wg.wola_gain_cuda(
+            x2, state["x_hist"].reshape(rows, ov).contiguous(),
+            state["ola"].reshape(rows, ov).contiguous(),
+            state["env"].contiguous(), state["pos"],
+            self._tables_on(x.device))
+        count_frames(self.engine, rows * (t // self.hop))
+        return y.reshape(lead + (t,)).to(x.dtype), {
+            "x_hist": xh.reshape(lead + (ov,)),
+            "ola": ola.reshape(lead + (ov,)), "env": env, "pos": pos}
+
     def _apply_gain(self, spec):
         if callable(self.gain):
             return spec * self.gain(spec)
@@ -333,6 +377,8 @@ class SpectralGainStage(Stage):
         t = x.shape[-1]
         if t % self.hop:
             raise ValueError(f"block length {t} not a multiple of hop")
+        if self._takes_kernel(x):
+            return self._apply_kernel(x, state)
         dev = x.device
         w = _stft.window_tensor(self.window, self.n_fft, dev)
         ext = torch.cat([state["x_hist"], x.to(torch.float32)], dim=-1)

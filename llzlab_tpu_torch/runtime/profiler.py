@@ -126,7 +126,8 @@ def counters() -> dict:
          "traffic_bytes": {kind: bytes},
          "launches": {"B1": {"launches": n}, ..., "B3": {"launches": n,
                       "cross_card_launches": n, ...}, ...,
-                      "sos_scan": {"launches": n}},
+                      "sos_scan": {"launches": n},
+                      "wola_gain": {"launches": n}},
          "builds": {source: {"builds": n, "nvcc_s": seconds}},
          "state_reads": {op: reads},
          "frames": {engine: frames}}
@@ -140,11 +141,13 @@ def counters() -> dict:
     from llzlab_tpu_torch.kernels import halo_fir_fused as _b4
     from llzlab_tpu_torch.kernels import halo_ring as _b3
     from llzlab_tpu_torch.kernels import sos_scan as _sos
+    from llzlab_tpu_torch.kernels import wola_gain as _wola
 
     wrappers = {"B1": _b1.fused_fir_resample_cuda, "B2": _b2.block2_fir_cuda,
                 "B3": _b3.left_halo_ring_cuda,
                 "B4": _b4.block2_fir_halo_fused_cuda,
-                "sos_scan": _sos.sos_scan_cuda}
+                "sos_scan": _sos.sos_scan_cuda,
+                "wola_gain": _wola.wola_gain_cuda}
     with _LOCK:
         return {
             "calls": dict(_CALLS),

@@ -1,8 +1,10 @@
 """The port's ``SpectralGainStage`` and ``FFTStage`` against the JAX
 package's on the CPU, at small shapes: each engine streamed against the
 JAX package's stage, streamed against its own one shot, the composed-WOLA
-engine against the float64 C++ golden, and a state saved by the JAX
-package's chain resumed by the port."""
+engine against the float64 C++ golden, a state saved by the JAX package's
+chain resumed by the port, and the wola_gain kernel's arithmetic
+(``kernels/wola_gain.py`` ``wola_gain_plain``, bit for bit the kernel's)
+at config 4's frames against the JAX package's reference engine."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +15,7 @@ import torch
 from llzlab_tpu import golden
 from llzlab_tpu.pipeline import chain as rchain
 from llzlab_tpu.utils import checkpoint as rckpt
+from llzlab_tpu_torch.kernels import wola_gain as wg
 from llzlab_tpu_torch.ops import spectral as psp
 from llzlab_tpu_torch.pipeline import chain as pchain
 from llzlab_tpu_torch.utils import checkpoint as pckpt
@@ -204,3 +207,48 @@ def test_fft_stage_and_stream_dtype_match_the_reference():
     blocks = [torch.from_numpy(x[:, :1024]), torch.from_numpy(x[:, 1024:2048])]
     ys = list(chain.stream(blocks, dtype=torch.float64))
     assert [tuple(y.shape) for y in ys] == [(2, 1024), (2, 1024)]
+
+
+def _tool_gain(n_fft, rate=48000):
+    """The ``stft`` tool's ``--gain-db -6 --notch 1000 2000`` at 48 kHz."""
+    f = np.arange(n_fft // 2 + 1) * rate / n_fft
+    g = np.full(f.shape, 10.0 ** (-6.0 / 20.0), np.float32)
+    g[(f >= 1000.0) & (f <= 2000.0)] = 0.0
+    return g
+
+
+@pytest.mark.parametrize("gain", ["tool_notch", "ramp"])
+def test_the_wola_gain_kernels_arithmetic_matches_the_reference_stage(gain):
+    """Config 4's frames (2048 points at hop 512), three blocks from the
+    stream's start, held as the composite path is above (these inputs read
+    136.7 / 136.6 dB on the interior, 105.5 / 96.5 dB over the whole
+    stream, for the notch / the ramp)."""
+    n_fft, hop, block, rows = 2048, 512, 8192, 3
+    lat, t = n_fft - hop, 3 * block
+    gain = (_tool_gain(n_fft) if gain == "tool_notch" else
+            np.linspace(1.0, 0.25, n_fft // 2 + 1).astype(np.float32))
+    x = _x(81, rows, t)
+    tables = wg.wola_tables(gain, n_fft, hop, "hann")
+    st = pchain.SpectralGainStage(gain, n_fft=n_fft, hop=hop).init_state(
+        (rows,), device="cpu")
+    mine = (st["x_hist"], st["ola"], st["env"], st["pos"])
+    ref_stage = rchain.SpectralGainStage(gain, n_fft=n_fft, hop=hop,
+                                         engine="reference")
+    ref_state = ref_stage.init_state((rows,))
+    got, ref = [], []
+    for i in range(0, t, block):
+        y, *mine = wg.wola_gain_plain(torch.from_numpy(x[:, i:i + block]),
+                                      *mine, tables)
+        got.append(y.numpy())
+        y, ref_state = ref_stage.apply(jnp.asarray(x[:, i:i + block]),
+                                       ref_state)
+        ref.append(np.asarray(y))
+    got, ref = np.concatenate(got, -1), np.concatenate(ref, -1)
+    assert got.shape == ref.shape == (rows, t)
+    np.testing.assert_array_equal(got[:, :lat], 0.0)
+    lo, hi = lat + n_fft, t - n_fft
+    assert snr_db(ref[:, lo:hi], got[:, lo:hi]) >= INTERIOR_DB
+    assert snr_db(ref, got) >= WHOLE_DB
+    assert int(mine[3]) == int(ref_state["pos"])
+    np.testing.assert_array_equal(mine[0].numpy(),
+                                  np.asarray(ref_state["x_hist"]))
