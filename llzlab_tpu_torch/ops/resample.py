@@ -15,6 +15,14 @@ The JAX package has no Pallas kernel here, and neither does the port: the
 product is a plain ``torch.matmul`` in f32 (TF32 is off, see
 ``runtime/platform.py``).  Numerics equal ``scipy.signal.upfirdn(h, x, up,
 down)`` truncated to ``ceil(T·up/down)`` outputs (causal, zero history).
+
+Under a profiler ``resample_poly`` is the span ``llz/ops/resample_poly``,
+and inside it the taps' normalisation, their ``tobytes`` key and the cached
+dense W are ``llz/ops/resample_weights``, the history join, its zero pad
+and the ``unfold`` ``llz/ops/resample_slab``.  Each call adds its input
+samples and the bytes of those three intermediates (the joined stream, the
+padded stream and the slab read as a dense ``(B·S, down + K − 1)`` f32
+matrix) to ``runtime.profiler.counters()["resample"]``, from shapes.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ import torch.nn.functional as F
 from llzlab_tpu_torch.ops import transform as _tf
 from llzlab_tpu_torch.ops.fir import firwin
 from llzlab_tpu_torch.ops.window import get_window
-from llzlab_tpu_torch.runtime.profiler import span
+from llzlab_tpu_torch.runtime.profiler import count_resample, span
 
 __all__ = [
     "resample_taps",
@@ -163,16 +171,20 @@ def _resample_impl(x, w, zi, *, up, down, k, return_zf):
     xb = x.reshape(-1, t).to(torch.float32)
     b = xb.shape[0]
     halo = k - 1
-    if zi is None:
-        hist = torch.zeros((b, halo), dtype=torch.float32, device=x.device)
-    else:
-        hist = zi.reshape(b, halo).to(torch.float32)
     s_groups = -(-t // down)  # ceil: groups of `up` outputs
     k2 = down + k - 1
-    # slab[s, τ] = stream[s·down + τ], stream = history ++ signal ++ zeros
-    stream = F.pad(torch.cat([hist, xb], dim=-1),
-                   (0, (s_groups - 1) * down + k2 - halo - t))
-    slab = stream.unfold(-1, k2, down)  # (B, S, k2)
+    with span("ops", "resample_slab"):
+        if zi is None:
+            hist = torch.zeros((b, halo), dtype=torch.float32,
+                               device=x.device)
+        else:
+            hist = zi.reshape(b, halo).to(torch.float32)
+        # slab[s, τ] = stream[s·down + τ], stream = history ++ signal ++ 0s
+        stream = F.pad(torch.cat([hist, xb], dim=-1),
+                       (0, (s_groups - 1) * down + k2 - halo - t))
+        slab = stream.unfold(-1, k2, down)  # (B, S, k2)
+    count_resample(b * t, 4 * b * (halo + t + stream.shape[-1]
+                                   + s_groups * k2))
     y = slab @ w.T
     n_out = resample_output_len(t, up, down)
     y = y.reshape(b, s_groups * up)[:, :n_out]
@@ -213,13 +225,15 @@ def resample_poly(
         up, down = up // g, down // g
         if up == down == 1 and taps is None:
             return ((x, x.new_zeros(x.shape[:-1] + (0,))) if return_zf else x)
-        if taps is None:
-            taps = resample_taps(up, down, taps_per_phase, window=window)
-        taps = np.asarray(taps, dtype=np.float64)
-        if len(taps) % up != 0:
-            taps = np.pad(taps, (0, up - len(taps) % up))
-        k = len(taps) // up
-        w = _weights_cached(taps.tobytes(), up, down, str(x.device))
+        with span("ops", "resample_weights"):
+            if taps is None:
+                taps = resample_taps(up, down, taps_per_phase,
+                                     window=window)
+            taps = np.asarray(taps, dtype=np.float64)
+            if len(taps) % up != 0:
+                taps = np.pad(taps, (0, up - len(taps) % up))
+            k = len(taps) // up
+            w = _weights_cached(taps.tobytes(), up, down, str(x.device))
         return _resample_impl(
             x, w, zi, up=up, down=down, k=k, return_zf=return_zf
         )

@@ -27,8 +27,9 @@ calls.
   ranks notes (``parallel.mesh.note_traffic``) by kind, the kernels'
   launches (their wrappers' ``.launches`` attributes), the builds of
   ``kernels/_build.py``, the IIR scan's reads of its states from the
-  device (``ops.iir.apply_section_host``) by calling op, and the frames
-  ``SpectralGainStage`` synthesises, by engine.
+  device (``ops.iir.apply_section_host``) by calling op, the frames
+  ``SpectralGainStage`` synthesises, by engine, and the samples and the
+  slab bytes of ``ops.resample.resample_poly``.
 * :func:`profile_calls` profiles some calls and says what the cards did.
   ``chip_smoke.py`` and the ``scripts/profile_*_torch.py`` scripts read
   their profiles through it.
@@ -70,6 +71,8 @@ _BUILDS: Dict[str, list] = {}
 _STATE_READS: Dict[str, int] = {}
 #: frames synthesised by ``SpectralGainStage``, by engine
 _FRAMES: Dict[str, int] = {}
+#: ``resample_poly``'s input samples and the bytes of its slab intermediates
+_RESAMPLE: Dict[str, int] = {}
 
 
 def span(layer: str, name: str):
@@ -119,6 +122,14 @@ def count_frames(engine: str, n: int) -> None:
     _FRAMES[engine] = _FRAMES.get(engine, 0) + n
 
 
+def count_resample(samples: int, slab_bytes: int) -> None:
+    """Count a call of ``resample_poly``: its input samples and the bytes
+    of the intermediates its dense path makes, a plain integer add, always
+    on, as :func:`count_frames`."""
+    _RESAMPLE["samples"] = _RESAMPLE.get("samples", 0) + samples
+    _RESAMPLE["slab_bytes"] = _RESAMPLE.get("slab_bytes", 0) + slab_bytes
+
+
 def counters() -> dict:
     """A snapshot of the program's counters since the process started::
 
@@ -130,12 +141,15 @@ def counters() -> dict:
                       "wola_gain": {"launches": n}},
          "builds": {source: {"builds": n, "nvcc_s": seconds}},
          "state_reads": {op: reads},
-         "frames": {engine: frames}}
+         "frames": {engine: frames},
+         "resample": {"samples": n, "slab_bytes": bytes}}
 
     ``traffic_bytes`` counts as ``utils.profiling.collective_traffic``
     does (a send's payload times its sends); ``frames`` counts the frames
     ``SpectralGainStage.apply`` synthesised (rows × block // hop a call),
-    by the engine that ran them."""
+    by the engine that ran them; ``resample`` the input samples of every
+    ``resample_poly`` call and the bytes of the intermediates its dense
+    path made (empty before the first call)."""
     from llzlab_tpu_torch.kernels import block2_fir as _b2
     from llzlab_tpu_torch.kernels import fused_fir_resample as _b1
     from llzlab_tpu_torch.kernels import halo_fir_fused as _b4
@@ -159,6 +173,7 @@ def counters() -> dict:
                        for k, (n, s) in _BUILDS.items()},
             "state_reads": dict(_STATE_READS),
             "frames": dict(_FRAMES),
+            "resample": dict(_RESAMPLE),
         }
 
 

@@ -2,7 +2,8 @@
 ``torch.profiler`` (names, nesting, the request's sequence number, the
 operator's Chrome trace), that no profiler range is entered while no
 profiler runs, the counters
-against ``collective_traffic``, and ``profile_calls``' arithmetic on
+against ``collective_traffic`` and from shapes (the resampler's samples
+and slab bytes), and ``profile_calls``' arithmetic on
 synthetic device intervals (a card's busy time is the union of its
 intervals, user annotations are not device work, idle is a mean over
 cards)."""
@@ -20,7 +21,9 @@ from llzlab_tpu_torch.ops.fir import firwin
 from llzlab_tpu_torch.ops.iir import peaking_eq_sos
 from llzlab_tpu_torch.parallel.mesh import TIME_AXIS, DspMesh, shard_time
 from llzlab_tpu_torch.parallel.sharded_ops import sosfilt_sharded
-from llzlab_tpu_torch.pipeline.chain import Chain, FIRStage, SOSStage
+from llzlab_tpu_torch.ops.resample import resample_poly
+from llzlab_tpu_torch.pipeline.chain import (Chain, FIRStage, ResampleStage,
+                                             SOSStage)
 from llzlab_tpu_torch.runtime import profiler
 from llzlab_tpu_torch.utils.profiling import collective_traffic, trace
 
@@ -125,6 +128,96 @@ def test_an_iir_block_records_its_scan_and_carry_spans_nested():
         "llz/ops/sosfilt"] + ["llz/ops/sos_carry"] * len(SOS)
     assert _inside(spans, "llz/pipeline/SOSStage", "llz/ops/sosfilt")
     assert _inside(spans, "llz/ops/sosfilt", "llz/ops/sos_carry")
+
+
+def _resample_chain():
+    """Config 2's chain, a state carried into it, and a block of 8 x 4000."""
+    chain = Chain([ResampleStage(147, 160)])
+    state = tuple(torch.randn(s.shape) for s in chain.init_state(
+        (8,), device="cpu"))
+    return chain, state, torch.randn(8, 4000)
+
+
+def test_a_resampler_block_records_its_weights_and_slab_spans_nested():
+    chain, state, x = _resample_chain()
+    with torch.profiler.profile() as prof:
+        chain.apply(x, state)
+    spans = _spans(prof)
+    assert [n for _, _, n in spans] == [
+        "llz/pipeline/Chain.apply", "llz/pipeline/ResampleStage",
+        "llz/ops/resample_poly", "llz/ops/resample_weights",
+        "llz/ops/resample_slab"]
+    assert _inside(spans, "llz/pipeline/ResampleStage",
+                   "llz/ops/resample_poly")
+    for inner in ("resample_weights", "resample_slab"):
+        assert _inside(spans, "llz/ops/resample_poly", f"llz/ops/{inner}")
+    assert not torch.autograd._profiler_enabled()
+    assert profiler.span("ops", "resample_slab") is profiler._OFF
+
+
+def test_a_resampler_block_enters_no_range_without_a_profiler(monkeypatch):
+    def refuse(*args, **kw):
+        raise AssertionError("a profiler range entered with no profiler")
+
+    monkeypatch.setattr(profiler, "_RecordFunctionFast", refuse)
+    chain, state, x = _resample_chain()
+    chain.apply(x, state)
+
+
+@pytest.mark.parametrize("shape,zi,want", [
+    # 8 x 4000, the benchmark's block: the joined stream and its pad
+    # 8 x 4063 x 4 B each, the slab 8 x 25 groups x 223 x 4 B
+    ((8, 4000), True, 438432),
+    # 1000 samples: 7 groups, the pad to 6 x 160 + 223 = 1183 samples
+    ((2, 3, 1000), False, 4 * 6 * (1063 + 1183 + 7 * 223)),
+])
+def test_the_resample_counter_adds_samples_and_slab_bytes_from_shapes(
+        shape, zi, want):
+    x = torch.randn(shape)
+    state = torch.randn(shape[:-1] + (63,)) if zi else None
+    before = profiler.counters()["resample"]
+    resample_poly(x, 147, 160, zi=state, return_zf=zi)
+    resample_poly(x, 147, 160, zi=state)
+    after = profiler.counters()["resample"]
+    assert after["samples"] - before.get("samples", 0) == 2 * x.numel()
+    assert after["slab_bytes"] - before.get("slab_bytes", 0) == 2 * want
+
+
+def test_the_resample_counter_only_rises():
+    chain, state, x = _resample_chain()
+    seen = [profiler.counters()["resample"]]
+    for _ in range(3):
+        _, state = chain.apply(x, state)
+        seen.append(profiler.counters()["resample"])
+    seen[-1]["samples"] = -1  # a snapshot is a copy
+    now = profiler.counters()["resample"]
+    assert now["samples"] > 0
+    for a, b in zip(seen, seen[1:-1] + [now]):
+        assert b["samples"] - a.get("samples", 0) == x.numel()
+        assert b["slab_bytes"] - a.get("slab_bytes", 0) == 438432
+
+
+def test_a_resampler_stream_under_a_profiler_is_bitwise_one_without():
+    chain, state0, x = _resample_chain()
+    blocks = x.repeat(1, 3).chunk(3, dim=-1)  # three blocks of 4000
+    want, state = [], state0
+    for b in blocks:
+        y, state = chain.apply(b, state)
+        want.append(y)
+    got, state_p = [], state0
+    with torch.profiler.profile():
+        for b in blocks:
+            y, state_p = chain.apply(b, state_p)
+            got.append(y)
+    assert all(torch.equal(a, b) for a, b in zip(want, got))
+    assert torch.equal(state[0], state_p[0])
+    # and each block's output is resample_poly's, called plainly
+    plain, zi = [], state0[0]
+    for b in blocks:
+        y, zi = resample_poly(b, 147, 160, taps=chain.stages[0].taps, zi=zi,
+                              return_zf=True)
+        plain.append(y)
+    assert all(torch.equal(a, b) for a, b in zip(want, plain))
 
 
 def test_the_state_reads_count_two_a_section_a_call():
@@ -243,7 +336,7 @@ def test_counters_count_the_calls_and_the_bytes_collective_traffic_sees(
 def test_counters_read_the_kernels_launches_and_the_builds():
     got = profiler.counters()
     assert set(got) == {"calls", "traffic_bytes", "launches", "builds",
-                        "state_reads", "frames"}
+                        "state_reads", "frames", "resample"}
     assert set(got["launches"]) == {"B1", "B2", "B3", "B4", "sos_scan",
                                     "wola_gain"}
     assert got["launches"]["B3"].keys() == {
